@@ -1,0 +1,92 @@
+"""Consistency-loss menu, confidence thresholding and supervised CE (port of
+cutmix_seg_tpu.semisup.losses), over NHWC logits.
+
+Class-dimension aggregation follows the reference: sum over classes, with
+logit-space losses divided by sqrt(num_classes). ``compute_dtype`` is the
+dtype of the (N, H, W, C)-scale softmax chain; pixel sums are float32.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.nn import functional as F
+
+EPS_BCE = 1e-6
+
+
+def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
+                         ignore_value: int = 255,
+                         compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Mean softmax cross-entropy over the pixels whose label is not
+    ``ignore_value`` (torch CrossEntropyLoss(ignore_index=...) semantics).
+
+    :param logits: (N, H, W, C) float
+    :param labels: (N, H, W) int
+    """
+    valid = labels != ignore_value
+    safe_labels = torch.where(valid, labels, 0).long()
+    logp = F.log_softmax(logits.to(compute_dtype), dim=-1)
+    picked = logp.gather(-1, safe_labels[..., None])[..., 0].float()
+    losses = torch.where(valid, -picked, 0.0)
+    return losses.sum() / valid.sum().clamp_min(1)
+
+
+def robust_binary_crossentropy(pred: torch.Tensor, tgt: torch.Tensor,
+                               eps: float = EPS_BCE) -> torch.Tensor:
+    """Elementwise BCE with epsilon guards."""
+    inv_tgt = 1.0 - tgt
+    inv_pred = 1.0 - pred + eps
+    return -(tgt * torch.log(pred + eps) + inv_tgt * torch.log(inv_pred))
+
+
+def consistency_loss_per_pixel(loss_fn: str, logits_stu: torch.Tensor,
+                               logits_tea: torch.Tensor,
+                               compute_dtype: torch.dtype = torch.float32
+                               ) -> torch.Tensor:
+    """Per-pixel consistency loss (N, H, W, 1) in float32, class dim summed.
+
+    loss_fn: 'var' | 'logits_var' | 'logits_smoothl1' | 'bce' | 'kld'
+    """
+    num_classes = logits_stu.shape[-1]
+    root_c = torch.sqrt(torch.tensor(float(num_classes))).to(
+        device=logits_stu.device, dtype=compute_dtype)
+    stu = logits_stu.to(compute_dtype)
+    tea = logits_tea.to(compute_dtype)
+
+    if loss_fn == "var":
+        d = F.softmax(stu, dim=-1) - F.softmax(tea, dim=-1)
+        return (d * d).sum(dim=-1, keepdim=True).float()
+    if loss_fn == "logits_var":
+        d = stu - tea
+        return ((d * d).sum(dim=-1, keepdim=True) / root_c).float()
+    if loss_fn == "logits_smoothl1":
+        d = torch.abs(stu - tea)
+        l = torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
+        return (l.sum(dim=-1, keepdim=True) / root_c).float()
+    if loss_fn == "bce":
+        p_stu = F.softmax(stu, dim=-1)
+        p_tea = F.softmax(tea, dim=-1)
+        return robust_binary_crossentropy(p_stu, p_tea).sum(
+            dim=-1, keepdim=True).float()
+    if loss_fn == "kld":
+        logp_stu = F.log_softmax(stu, dim=-1)
+        p_tea = F.softmax(tea, dim=-1)
+        logp_tea = F.log_softmax(tea, dim=-1)
+        # KL(p_tea || p_stu), as F.kl_div(input=logp_stu, target=p_tea)
+        return (p_tea * (logp_tea - logp_stu)).sum(dim=-1, keepdim=True).float()
+    raise ValueError(f"unknown consistency loss {loss_fn!r}")
+
+
+def confidence_mask(prob_tea: torch.Tensor, conf_thresh: float, per_pixel: bool):
+    """Teacher-confidence gating.
+
+    :param prob_tea: (N, H, W, C) teacher probabilities
+    :return: (mask, conf_rate): mask is (N, H, W, 1) if per_pixel, else the
+        scalar mean confidence rate; conf_rate is that mean either way.
+    """
+    conf = prob_tea.amax(dim=-1, keepdim=True)
+    m = (conf >= conf_thresh).float()
+    rate = m.mean()
+    if per_pixel:
+        return m, rate
+    return rate, rate
