@@ -7,8 +7,13 @@ Phases, in order; any failure exits non-zero before the result lines:
      cutmix_seg_tpu_torch/csrc/ with nvcc (sm_90a) and time the build;
   2. kernel vs plain: the CutMix kernel against its plain PyTorch version on
      the card, bit-equal masks and blends, f32 and bf16, at the main-path
-     shape and the edge cases; then both timed with CUDA events at the
-     main-path shape (L2 flushed before each launch) beside the bound;
+     shape and the edge cases (unaligned views, ragged ends, 21 channels,
+     70,000 images); then timed with CUDA events at the main-path shape (L2
+     flushed before each launch): the kernel in f32 and bf16 beside its
+     bounds and beside torch.add of the same tensors (a bandwidth
+     yardstick), the plain version, the unaligned variant, the timing's
+     floor (one pixel), and the same calls after a flush that leaves L2
+     clean;
   3. small model, GPU vs CPU: the tiny DeepLab v2 in f32 (TF32 off) for two
      mask_mt steps with injected rects, held against the port's own CPU run;
   4. full width: DeepLab v2 R101, bf16, the bench.py recipe at bs 10+10+10,
@@ -67,22 +72,33 @@ def phase_build() -> dict:
     return {"nvidia_smi": smi}
 
 
-def _case_inputs(n, h, w, c, box_kw, dtype, seed):
+def _case_inputs(n, h, w, c, box_kw, dtype, seed, offset=0):
+    """x0, x1 (contiguous; at a storage offset of `offset` elements, so not
+    16-byte aligned when it is odd) and rects, made on the card from a seed."""
     rects = sample_box_rects_np(BoxMaskConfig(**box_kw), n, (h, w),
                                 np.random.RandomState(seed))
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    x0 = torch.randn((n, h, w, c), generator=gen, device="cuda").to(dtype)
-    x1 = torch.randn((n, h, w, c), generator=gen, device="cuda").to(dtype)
-    return x0, x1, torch.from_numpy(rects).cuda()
+
+    def image():
+        buf = torch.empty(offset + n * h * w * c, dtype=dtype, device="cuda")
+        buf[offset:] = torch.randn(n * h * w * c, generator=gen, device="cuda").to(dtype)
+        return buf[offset:].view(n, h, w, c)
+
+    return image(), image(), torch.from_numpy(rects).cuda()
 
 
-def _time_ms(fn, flush: torch.Tensor, iters: int = 50) -> float:
-    """Median device time of one call, each launch after an L2 flush."""
+def _time_ms(fn, flush: torch.Tensor, iters: int = 50, clean: bool = False) -> float:
+    """Median device time of one call, each launch after an L2 flush: a
+    write of `flush` (L2 left full of dirty lines, as in earlier runs), or,
+    with `clean`, that write and then a read of it (L2 left full of clean
+    lines, so the call pays no write-back of another kernel's data)."""
     for _ in range(3):
         fn()
     events = []
     for _ in range(iters):
         flush.zero_()
+        if clean:
+            flush.sum()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -92,18 +108,40 @@ def _time_ms(fn, flush: torch.Tensor, iters: int = 50) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
+def _bound_ms(x0: torch.Tensor, rects: torch.Tensor):
+    """(bound in ms, bytes, what bounds it) of one call: each input read and
+    each output written once; box compares and the blend as f32 operations."""
+    n, h, w, c = x0.shape
+    n_bytes = 3 * x0.numel() * x0.element_size() + rects.numel() * 4 \
+        + n * h * w * x0.element_size()
+    n_ops = n * h * w * (4 * rects.shape[1] + 3 * c)
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = n_ops / PEAK_F32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), n_bytes, "bytes" if bytes_ms >= ops_ms else "operations"
+
+
 def phase_kernel_vs_plain() -> dict:
+    # name: (n, h, w, c, box config, invert, storage offset of x0 and x1)
+    half = dict(prop_range=(0.5, 0.5))
     cases = {
-        "main_path": (*MAIN_SHAPE, dict(prop_range=(0.5, 0.5)), True),
-        "two_boxes_64": (4, 64, 64, 3, dict(prop_range=(0.25, 0.75), n_boxes=2), True),
-        "odd_height_no_invert": (2, 33, 48, 1, dict(prop_range=(0.5, 0.5), invert=False), False),
+        "main_path": (*MAIN_SHAPE, half, True, 0),
+        "two_boxes_64": (4, 64, 64, 3, dict(prop_range=(0.25, 0.75), n_boxes=2), True, 0),
+        "odd_height_no_invert": (2, 33, 48, 1, dict(prop_range=(0.5, 0.5), invert=False),
+                                 False, 0),
         "outside_bounds": (6, 40, 52, 3, dict(prop_range=(0.3, 0.9), n_boxes=2,
-                                              within_bounds=False), True),
+                                              within_bounds=False), True, 0),
+        # not 16-byte aligned: the kernel's one-element variant
+        "offset_view": (*MAIN_SHAPE, half, True, 1),
+        # 2907 elements: a ragged end in f32 and bf16, vectors across samples
+        "tail_and_straddle": (3, 17, 19, 3, half, True, 0),
+        "c21": (2, 41, 41, 21, half, True, 0),
+        # past the 65,535 grid-y limit of the per-sample grid
+        "batch_70000": (70000, 2, 3, 1, half, True, 0),
     }
     max_err = 0.0
-    for seed, (name, (n, h, w, c, box_kw, invert)) in enumerate(sorted(cases.items())):
+    for seed, (name, (n, h, w, c, box_kw, invert, offset)) in enumerate(sorted(cases.items())):
         for dtype in (torch.float32, torch.bfloat16):
-            x0, x1, rects = _case_inputs(n, h, w, c, box_kw, dtype, seed)
+            x0, x1, rects = _case_inputs(n, h, w, c, box_kw, dtype, seed, offset)
             if name == "outside_bounds" and not bool((rects < 0).any()):
                 raise RuntimeError("outside_bounds case has no negative coordinate")
             mix_k, m_k = cutmix_blend(x0, x1, rects, invert)
@@ -113,28 +151,57 @@ def phase_kernel_vs_plain() -> dict:
                       (m_k.float() - m_p.float()).abs().max().item())
             max_err = max(max_err, err)
             equal = torch.equal(mix_k, mix_p) and torch.equal(m_k, m_p)
-            note(f"[kernel] {name} {str(dtype)[6:]} {tuple(x0.shape)} B={rects.shape[1]}: "
-                 f"bit-equal={equal} max_abs_err={err}")
+            note(f"[kernel] {name} {str(dtype)[6:]} {tuple(x0.shape)} B={rects.shape[1]} "
+                 f"offset={offset}: bit-equal={equal} max_abs_err={err}")
             if not equal:
                 raise RuntimeError(f"cutmix_blend kernel != plain on {name} {dtype}")
 
-    # timing at the main-path shape and type (f32, one box)
-    x0, x1, rects = _case_inputs(*MAIN_SHAPE, dict(prop_range=(0.5, 0.5)), torch.float32, 0)
+    # timing at the main-path shape (one box), L2 flushed before each launch
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    kernel_ms = _time_ms(lambda: cutmix_blend(x0, x1, rects), flush)
+    x0, x1, rects = _case_inputs(*MAIN_SHAPE, half, torch.float32, 0)
+    b0, b1 = x0.bfloat16(), x1.bfloat16()
+    out, out_b = torch.empty_like(x0), torch.empty_like(b0)
+    calls = {  # name: (call, bytes it moves)
+        "kernel f32": (lambda: cutmix_blend(x0, x1, rects), _bound_ms(x0, rects)[1]),
+        "kernel bf16": (lambda: cutmix_blend(b0, b1, rects), _bound_ms(b0, rects)[1]),
+        # bandwidth yardstick: one PyTorch call that reads two such tensors
+        # and writes one (37.09 MB of the kernel's 41.22 in f32); it computes
+        # another function and nothing in the port calls it
+        "torch.add f32": (lambda: torch.add(x0, x1, out=out), 3 * x0.numel() * 4),
+        "torch.add bf16": (lambda: torch.add(b0, b1, out=out_b), 3 * b0.numel() * 2),
+    }
+    ms = {name: _time_ms(fn, flush) for name, (fn, _) in calls.items()}
+    gbps = {name: nb / ms[name] / 1e6 for name, (_, nb) in calls.items()}
     plain_ms = _time_ms(lambda: cutmix_blend_plain(x0, x1, rects), flush)
-    n, h, w, c = MAIN_SHAPE
-    n_bytes = 3 * x0.numel() * x0.element_size() + rects.numel() * 4 \
-        + n * h * w * x0.element_size()
-    n_ops = n * h * w * (4 * rects.shape[1] + 3 * c)  # box compares + blend
-    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = n_ops / PEAK_F32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    note(f"[kernel] main path f32 {MAIN_SHAPE}: kernel {kernel_ms * 1e3:.2f} us, "
-         f"plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
-         f"({n_bytes / 1e6:.2f} MB at 3.35 TB/s; {n_bytes / kernel_ms / 1e6:.1f} GB/s achieved)")
-    return {"max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    bound_ms, n_bytes, bound_by = _bound_ms(x0, rects)
+    bf16_bound_ms, bf16_bytes, _ = _bound_ms(b0, rects)
+    for dt, bound, nb in (("f32", bound_ms, n_bytes), ("bf16", bf16_bound_ms, bf16_bytes)):
+        k = f"kernel {dt}"
+        note(f"[kernel] main path {dt} {MAIN_SHAPE}: kernel {ms[k] * 1e3:.2f} us, bound "
+             f"{bound * 1e3:.2f} us ({nb / 1e6:.2f} MB at 3.35 TB/s; {gbps[k]:.1f} GB/s achieved, "
+             f"{bound / ms[k]:.1%} of the bound); yardstick torch.add {dt} "
+             f"{ms[f'torch.add {dt}'] * 1e3:.2f} us, {gbps[f'torch.add {dt}']:.1f} GB/s: the "
+             f"kernel's rate is {gbps[k] / gbps[f'torch.add {dt}']:.1%} of it")
+    note(f"[kernel] plain version f32: {plain_ms * 1e3:.2f} us")
+
+    xu0, xu1, _ = _case_inputs(*MAIN_SHAPE, half, torch.float32, 0, offset=1)
+    unaligned_ms = _time_ms(lambda: cutmix_blend(xu0, xu1, rects), flush)
+    note(f"[kernel] main path f32, x0/x1 at offset 1 (one-element variant): "
+         f"{unaligned_ms * 1e3:.2f} us, {n_bytes / unaligned_ms / 1e6:.1f} GB/s")
+    # what this timing gives a call that moves almost nothing
+    p0, p1, pr = _case_inputs(1, 1, 1, 1, half, torch.float32, 0)
+    floor_ms = _time_ms(lambda: cutmix_blend(p0, p1, pr), flush)
+    one, one_out = torch.ones(1, device="cuda"), torch.empty(1, device="cuda")
+    add1_ms = _time_ms(lambda: torch.add(one, one, out=one_out), flush)
+    note(f"[kernel] floor of this timing: the kernel on 1 pixel {floor_ms * 1e3:.2f} us, "
+         f"torch.add of 1 element {add1_ms * 1e3:.2f} us")
+    clean = {name: _time_ms(fn, flush, clean=True) for name, (fn, _) in calls.items()}
+    note("[kernel] with L2 left clean before each launch: " + ", ".join(
+        f"{name} {t * 1e3:.2f} us ({calls[name][1] / t / 1e6:.1f} GB/s)"
+        for name, t in clean.items()))
+    return {"max_abs_err": max_err, "ms": ms["kernel f32"], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "ms_bf16": ms["kernel bf16"],
+            "bound_ms_bf16": bf16_bound_ms, "yardstick_gbps": gbps["torch.add f32"]}
 
 
 def _tiny_state(device, sd):
@@ -302,7 +369,8 @@ def main() -> int:
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
         "kernel_us": k["ms"] * 1e3, "plain_us": k["plain_ms"] * 1e3,
-        "bound_us": k["bound_ms"] * 1e3,
+        "bound_us": k["bound_ms"] * 1e3, "ms_bf16": k["ms_bf16"],
+        "bound_ms_bf16": k["bound_ms_bf16"], "yardstick_gbps": k["yardstick_gbps"],
     }]
     note(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

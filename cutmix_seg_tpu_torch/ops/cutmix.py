@@ -4,7 +4,10 @@
 ``cutmix_blend`` dispatches on the tensors' device: CPU tensors take
 ``cutmix_blend_plain`` (``rasterise_masks`` + the blend, the kernel's
 reference semantics), CUDA tensors launch the kernel or raise. There is no
-fallback from a failed build or launch.
+fallback from a failed build or launch. The kernel streams the batch as one
+flat run, so it takes any batch size up to 2^31 - 1 elements per tensor;
+inputs whose addresses are not 16-byte aligned take its one-element variant,
+chosen inside the launch.
 
 The kernel needs no backward: it blends input images (no gradient) and
 produces the mask, and the teacher-logit blend that reuses the mask is
@@ -22,7 +25,7 @@ from cutmix_seg_tpu_torch.ops import build
 
 KERNEL = "cutmix_blend"
 _ENTRY = {torch.float32: "cutmix_blend_f32", torch.bfloat16: "cutmix_blend_bf16"}
-_MAX_GRID_Y = 65535
+_MAX_ELEMS = 2 ** 31 - 1  # the kernel indexes in 32 bits
 
 
 def cutmix_blend_plain(x0: torch.Tensor, x1: torch.Tensor, rects: torch.Tensor,
@@ -52,8 +55,11 @@ def _check(x0: torch.Tensor, x1: torch.Tensor, rects: torch.Tensor) -> None:
     if x0.requires_grad or x1.requires_grad or rects.requires_grad:
         raise ValueError("cutmix_blend has no backward; pass tensors that "
                          "do not require grad")
-    if n < 1 or n > _MAX_GRID_Y or x0.numel() == 0:
-        raise ValueError(f"batch must hold 1..{_MAX_GRID_Y} non-empty images")
+    if n < 1 or x0.numel() == 0:
+        raise ValueError("batch must hold at least one non-empty image")
+    if x0.numel() > _MAX_ELEMS:
+        raise ValueError(f"cutmix_blend takes at most {_MAX_ELEMS} elements per "
+                         f"tensor, got {x0.numel()}")
 
 
 def _kernel_fn(dtype: torch.dtype):
