@@ -19,29 +19,60 @@ Phases, in order; any failure exits non-zero before the result lines:
   4. full width: DeepLab v2 R101, bf16, the bench.py recipe at bs 10+10+10,
      321x321: 3 warm-up and 10 timed steps through create_train_state and
      make_mask_mt_step; losses finite, one kernel launch per step;
-  5. the kernel summary line and, last, the device line.
+  5. augmentation and eval, card against CPU: host batches of a synthetic
+     VOC tree from the port's loader (10 images, 321x321 crops from 512x512
+     canvases) through augment_batch on the gather path (crop_rotate_scale,
+     reflect101) and the separable path (crop_scale_hung), colour jitter on,
+     with the same injected colour draws on both devices: labels bit-equal,
+     images and valid masks within float32 rounding; confusion_matrix at
+     10x512x512 bit-equal;
+  6. the trainer at full width: train_seg_semisup_mask_mt through job.submit
+     with the Pascal recipe on that VOC tree (R101, random init), 2 epochs x
+     10 iterations, then --resume to epoch 3: epoch lines with finite losses
+     and a VAL mIoU, one kernel launch per iteration, a checkpoint and
+     model.pt, the restored state equal to the saved one bit for bit, the
+     resumed run starting at epoch 3; the trainer's ms/iteration and img/s
+     beside phase 4's bare step;
+  7. the kernel summary line and, last, the device line.
 
 Imports nothing of JAX: it runs where only PyTorch and the CUDA toolkit are.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from cutmix_seg_tpu_torch.aug.device import augment_batch, border_for_mode
+from cutmix_seg_tpu_torch.aug.params import GeomConfig
+from cutmix_seg_tpu_torch.core import checkpoint, job
 from cutmix_seg_tpu_torch.core.train_state import OptimizerConfig, create_train_state
+from cutmix_seg_tpu_torch.data.loader import HostBatchBuilder, train_stream
+from cutmix_seg_tpu_torch.data.sources import PascalVOCDataSource
+from cutmix_seg_tpu_torch.data.synthetic import write_config, write_voc_tree
 from cutmix_seg_tpu_torch.masks.box_mask import BoxMaskConfig, sample_box_rects_np
-from cutmix_seg_tpu_torch.models.common import SegModel
+from cutmix_seg_tpu_torch.models.common import IMAGENET_MEAN, IMAGENET_STD, SegModel
 from cutmix_seg_tpu_torch.models.deeplab2 import DeepLab2, _param_label, resnet101_deeplab_imagenet
 from cutmix_seg_tpu_torch.ops import build
+from cutmix_seg_tpu_torch.ops.colour import (
+    ColourJitterConfig,
+    ColourParams,
+    sample_colour_params,
+)
 from cutmix_seg_tpu_torch.ops.cutmix import KERNEL, cutmix_blend, cutmix_blend_plain
+from cutmix_seg_tpu_torch.ops.iou import confusion_matrix
 from cutmix_seg_tpu_torch.semisup.mask_mt import MaskConsistencyConfig, make_mask_mt_step
+from cutmix_seg_tpu_torch.train import common
+from cutmix_seg_tpu_torch.train.mask_mt import experiment, train_seg_semisup_mask_mt
 
 # H100 SXM data sheet: HBM rate and the float32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -50,6 +81,13 @@ PEAK_F32_OPS_PER_S = 67e12
 MAIN_SHAPE = (10, 321, 321, 3)  # bench.py: 10 unsupervised images per batch, 321^2
 BATCH, CROP, NUM_CLASSES = 10, 321, 21
 WARMUP, ITERS = 3, 10
+# phase 5: augmented images agree within float32 rounding: source coordinates
+# to a few ulps, times a step of up to 255 between neighbouring pixels, is
+# 2e-3 on the 0-255 scale, 5e-5 after normalisation (std 0.224); a valid
+# mask moves by the coordinate's own error (1e-5)
+AUG_NORM_ATOL, AUG_MASK_ATOL = 5e-5, 1e-5
+# phase 6: the synthetic VOC tree and the trainer's run
+VOC_TRAIN, VOC_VAL, TRAIN_ITERS = 40, 10, 10
 
 
 def note(msg: str) -> None:
@@ -351,6 +389,251 @@ def phase_full_step() -> dict:
     return result
 
 
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _host_batch(source, mode: str, with_labels: bool, seed: int):
+    """One host batch of BATCH images from the port's loader: (geom, batch)."""
+    rotate = mode == "crop_rotate_scale"
+    geom = GeomConfig.from_cli((CROP, CROP), mode == "crop_scale_hung", 1.5 if rotate else 1.0,
+                               20.0 if rotate else 0.0, False, True, False, False)
+    if geom.mode != mode:
+        raise RuntimeError(f"flags gave geometry {geom.mode}, not {mode}")
+    stream = train_stream(HostBatchBuilder(source, geom, with_labels=with_labels, n_threads=4),
+                          source.train_ndx, BATCH, seed=seed)
+    try:
+        return geom, next(stream)
+    finally:
+        stream.close()
+
+
+def _augment(geom, batch, params, with_labels, mean, std):
+    return augment_batch(batch["canvas"], batch.get("labels"), batch["m"], batch["sizes"],
+                         batch["interp"], mean, std, params, (CROP, CROP), with_labels,
+                         border=border_for_mode(geom.mode),
+                         separable=common.separable_for_geom(geom))
+
+
+def phase_augment_eval(voc_root: str, dev: str = "cuda") -> dict:
+    """The port's augmentation and confusion matrix on ``dev`` against the
+    CPU. TF32 is switched on for matrix products meanwhile: the separable
+    warp must not take it."""
+    source = PascalVOCDataSource(-1, np.random.RandomState(0), None, root=voc_root)
+    mean, std = IMAGENET_MEAN, IMAGENET_STD
+    colour = ColourJitterConfig()
+    worst = {"image": 0.0, "mask": 0.0}
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        for seed, (mode, with_labels) in enumerate(
+                [(m, lab) for m in ("crop_rotate_scale", "crop_scale_hung") for lab in (True, False)]):
+            geom, host = _host_batch(source, mode, with_labels, seed)
+            params = None
+            if not with_labels:
+                params = sample_colour_params(torch.Generator().manual_seed(seed), BATCH, colour)
+            outs = {}
+            for d in ("cpu", dev):
+                b = common.to_device(host, torch.device(d))
+                p = None if params is None else ColourParams(
+                    **{f.name: getattr(params, f.name).to(d) for f in dataclasses.fields(params)})
+                outs[d] = {k: v.cpu() for k, v in _augment(geom, b, p, with_labels,
+                                                           mean, std).items()}
+            ref, got = outs["cpu"], outs[dev]
+            if sorted(ref) != sorted(got):
+                raise RuntimeError(f"augment_batch keys differ: {sorted(ref)} {sorted(got)}")
+            errs = {k: (got[k].double() - ref[k].double()).abs().max().item()
+                    for k in ref if k != "labels"}
+            labels_equal = with_labels and torch.equal(got["labels"], ref["labels"])
+            note(f"[aug] {mode} {'labels' if with_labels else 'colour'} interp "
+                 f"{sorted(set(host['interp'].tolist()))} {tuple(got['image'].shape)} from "
+                 f"{tuple(host['canvas'].shape[1:3])} canvases, {dev} vs cpu: max_abs_err "
+                 f"{errs}" + (f", labels bit-equal={labels_equal}" if with_labels else ""))
+            if with_labels and not labels_equal:
+                raise RuntimeError(f"{mode}: warped labels differ between {dev} and cpu")
+            for k, e in errs.items():
+                kind = "mask" if k == "mask" else "image"
+                worst[kind] = max(worst[kind], e)
+                if not e <= (AUG_MASK_ATOL if kind == "mask" else AUG_NORM_ATOL):
+                    raise RuntimeError(f"{mode} {k}: {dev} and cpu differ by {e}")
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+    # the Pascal recipe's per-iteration work on the card: the copy of one
+    # labelled and two unlabelled host batches, then their augmentation
+    geom, sup = _host_batch(source, "crop_scale_hung", True, 10)
+    _, unsup = _host_batch(source, "crop_scale_hung", False, 11)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    d = torch.device(dev)
+    h2d, aug = [], []
+    for _ in range(6):
+        _sync(d)
+        t0 = time.perf_counter()
+        bs = [common.to_device(b, d) for b in (sup, unsup, unsup)]
+        _sync(d)
+        t1 = time.perf_counter()
+        _augment(geom, bs[0], None, True, mean, std)
+        for b in bs[1:]:
+            _augment(geom, b, sample_colour_params(gen, BATCH, colour), False, mean, std)
+        _sync(d)
+        h2d.append(t1 - t0)
+        aug.append(time.perf_counter() - t1)
+    nbytes = sum(v.nbytes for b in (sup, unsup, unsup) for v in b.values())
+    h2d_ms, aug_ms = float(np.median(h2d[1:])) * 1e3, float(np.median(aug[1:])) * 1e3
+    note(f"[aug] Pascal recipe per iteration on {dev}: copy of 3 host batches "
+         f"({nbytes / 1e6:.2f} MB) {h2d_ms:.2f} ms, augmentation (sup + 2 unsup with "
+         f"colour) {aug_ms:.2f} ms (median of 5)")
+
+    rng = np.random.RandomState(5)
+    truth = rng.randint(0, NUM_CLASSES, size=(BATCH, 512, 512))
+    truth[rng.rand(*truth.shape) < 0.2] = 255
+    pred = rng.randint(0, NUM_CLASSES, size=truth.shape)
+    cm_ref = confusion_matrix(torch.from_numpy(pred), torch.from_numpy(truth), NUM_CLASSES)
+    pred_d, truth_d = torch.from_numpy(pred).to(d), torch.from_numpy(truth).to(d)
+    cm = confusion_matrix(pred_d, truth_d, NUM_CLASSES)
+    equal = torch.equal(cm.cpu(), cm_ref) and int(cm_ref.sum()) == int((truth != 255).sum())
+    _sync(d)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        confusion_matrix(pred_d, truth_d, NUM_CLASSES)
+    _sync(d)
+    cm_ms = (time.perf_counter() - t0) / 10 * 1e3
+    note(f"[eval] confusion_matrix {truth.shape} ({truth.size} px) on {dev}: bit-equal to "
+         f"cpu={equal}, {cm_ms:.3f} ms")
+    if not equal:
+        raise RuntimeError(f"confusion_matrix differs between {dev} and cpu")
+    return {"aug_max_abs_err": worst, "h2d_ms": h2d_ms, "aug_ms": aug_ms, "cm_ms": cm_ms}
+
+
+# the Pascal recipe (run_pascal_aug_experiments.sh) on the synthetic VOC tree
+RECIPE_FLAGS = [
+    "--dataset=pascal", "--arch=resnet101_deeplab_imagenet", "--freeze_bn",
+    "--batch_size=10", "--learning_rate=3e-5", "--crop_size=321,321", "--aug_hflip",
+    "--aug_scale_hung", "--aug_strong_colour", "--cons_weight=1.0", "--mask_mode=mix",
+    "--mask_prop_range=0.5", "--conf_thresh=0.97", "--n_sup=20", "--no_pretrained",
+    "--save_model", f"--iters_per_epoch={TRAIN_ITERS}",
+]
+
+
+def _run_trainer(results: str, flags, device) -> tuple:
+    """Parse ``flags`` with the port's click command, then run the trainer
+    through job.submit: (engine, kernel launches in the run, log text)."""
+    params = dict(experiment.make_context("experiment", list(flags)).params)
+    del params["job_desc"]
+    build.launch_counts.clear()
+    engine = job.submit("chip_smoke_mask_mt", "run", train_seg_semisup_mask_mt,
+                        dict(params, device=device), results_root=results)
+    launches = build.launch_counts.get(KERNEL, 0)
+    with open(os.path.join(engine.ctx.run_dir, "log_run.txt")) as f:
+        return engine, launches, f.read()
+
+
+def _epoch_line(log: str, epoch: int) -> dict:
+    lines = [ln for ln in log.splitlines() if ln.startswith(f"Epoch {epoch}:")]
+    if len(lines) != 1 or "VAL mIoU=" not in lines[0]:
+        raise RuntimeError(f"expected one epoch-{epoch} line with a VAL mIoU, got {lines}")
+    vals = {}
+    for key in ("TRAIN clf loss", "consistency loss"):
+        vals[key] = float(lines[0].split(key + "=")[1].split(",")[0])
+    if not all(math.isfinite(v) for v in vals.values()):
+        raise RuntimeError(f"non-finite losses: {lines[0]}")
+    return vals
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        return [t for x in tree for t in _tensors(x)]
+    return [tree] if torch.is_tensor(tree) else []
+
+
+def _states_equal(a: dict, b: dict) -> bool:
+    def eq(x, y):
+        if isinstance(x, dict):
+            return x.keys() == y.keys() and all(eq(x[k], y[k]) for k in x)
+        if isinstance(x, list):
+            return len(x) == len(y) and all(eq(u, v) for u, v in zip(x, y))
+        if torch.is_tensor(x):
+            return torch.equal(x, y)
+        return x == y
+    return eq(a, b)
+
+
+def phase_trainer(voc_root: str, step_ms: float, device=None) -> dict:
+    """The trainer at full width on the card: 2 epochs, then --resume to 3."""
+    tmp = os.path.dirname(voc_root)
+    os.environ["CUTMIX_SEG_CONFIG"] = write_config(os.path.join(tmp, "seg.cfg"), voc_root)
+    results = os.path.join(tmp, "results")
+
+    engine, launches1, log = _run_trainer(results, RECIPE_FLAGS + ["--num_epochs=2"], device)
+    first = {e: _epoch_line(log, e) for e in (1, 2)}
+    run_dir = engine.ctx.run_dir
+    ckpts = sorted(os.listdir(engine.ctx.checkpoint_dir))
+    if ckpts != [f"ckpt_{TRAIN_ITERS:09d}.pt", f"ckpt_{2 * TRAIN_ITERS:09d}.pt"]:
+        raise RuntimeError(f"unexpected checkpoints {ckpts}")
+    if not os.path.exists(os.path.join(run_dir, "model.pt")):
+        raise RuntimeError("model.pt was not written")
+    if launches1 != 2 * TRAIN_ITERS:
+        raise RuntimeError(f"expected {2 * TRAIN_ITERS} {KERNEL} launches, got {launches1}")
+
+    # the checkpoint restores the saved state bit for bit, into a fresh state
+    saved = checkpoint.state_to_host(engine.state)
+    model2 = common.build_model(engine.p["arch"], engine.n_classes, engine.p["compute_dtype"])
+    state2, _ = create_train_state(model2, OptimizerConfig(learning_rate=3e-5), 1,
+                                   device=engine.device, pretrained=False)
+    latest = checkpoint.latest_checkpoint(engine.ctx.checkpoint_dir)
+    restored = checkpoint.state_to_host(checkpoint.restore_checkpoint(latest, state2))
+    if not _states_equal(saved, restored):
+        raise RuntimeError(f"the state restored from {latest} differs from the saved one")
+    del model2, state2, restored
+    t0 = time.perf_counter()
+    host = checkpoint.state_to_host(engine.state)
+    t1 = time.perf_counter()
+    checkpoint.save_checkpoint(os.path.join(tmp, "ckpt_timing"), engine.state, engine.state.step)
+    t2 = time.perf_counter()
+    ckpt_mb = sum(v.numel() * v.element_size() for v in _tensors(host)) / 1e6
+    del host
+
+    with open(os.path.join(run_dir, "metrics_run.jsonl")) as f:
+        records = [json.loads(ln) for ln in f]
+    ep2 = records[1]
+    n_eval_batches = -(-VOC_VAL // BATCH)
+    ms_iter = ep2["train_time"] / TRAIN_ITERS * 1e3
+    result = {
+        "ms_per_iter": ms_iter, "img_per_s": TRAIN_ITERS * BATCH / ep2["train_time"],
+        "eval_ms_per_batch": ep2["eval_time"] / n_eval_batches * 1e3,
+        "epoch_s": [r["epoch_time"] for r in records], "ckpt_host_copy_s": t1 - t0,
+        "ckpt_save_s": t2 - t1, "launches": launches1, "losses": first,
+    }
+    note(f"[trainer] Pascal recipe, {engine.p['arch']} {engine.p['compute_dtype']}, bs {BATCH}, "
+         f"{CROP}^2 crops from {engine.ds.canvas_hw} canvases, "
+         f"{VOC_TRAIN} train / {VOC_VAL} val synthetic VOC images: epoch lines {first}; "
+         f"{launches1} {KERNEL} launches in {2 * TRAIN_ITERS} iterations; "
+         f"checkpoints {ckpts} + model.pt; restored state bit-equal to the saved one")
+    note(f"[trainer] epoch 2: {ms_iter:.2f} ms/iteration, {result['img_per_s']:.2f} img/s "
+         f"(host loader + copy + augmentation + step) beside phase 4's bare step "
+         f"{step_ms:.2f} ms/step; eval {result['eval_ms_per_batch']:.1f} ms per val batch of "
+         f"{BATCH} ({engine.ds.canvas_hw}); epochs {[round(s, 2) for s in result['epoch_s']]} s; "
+         f"checkpoint ({ckpt_mb:.0f} MB: student, teacher, Adam moments): host copy "
+         f"{t1 - t0:.2f} s, synchronous save {t2 - t1:.2f} s")
+
+    engine3, launches3, log = _run_trainer(
+        results, RECIPE_FLAGS + ["--num_epochs=3", "--resume"], device)
+    if engine3.start_epoch != 2 or "Resumed from" not in log:
+        raise RuntimeError(f"the resumed run started at epoch {engine3.start_epoch + 1}, not 3")
+    result["resumed"] = _epoch_line(log, 3)
+    if launches3 != TRAIN_ITERS:
+        raise RuntimeError(f"expected {TRAIN_ITERS} {KERNEL} launches on resume, got {launches3}")
+    if engine3.state.step != 3 * TRAIN_ITERS:
+        raise RuntimeError(f"resumed run ended at step {engine3.state.step}")
+    result["launches_resume"] = launches3
+    note(f"[trainer] --resume: started at epoch 3, epoch line {result['resumed']}, "
+         f"{launches3} {KERNEL} launches in {TRAIN_ITERS} iterations")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU",
@@ -361,11 +644,18 @@ def main() -> int:
     k = phase_kernel_vs_plain()
     phase_small_step()
     full = phase_full_step()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        voc_root = write_voc_tree(os.path.join(tmp, "VOC2012"), VOC_TRAIN, VOC_VAL, seed=0)
+        phase_augment_eval(voc_root)
+        trainer = phase_trainer(voc_root, full["ms_per_step"])
     kernels = [{
         "name": KERNEL, "route": "cuda",
         "source": "cutmix_seg_tpu_torch/csrc/cutmix_blend.cu",
         "replaces": "cutmix_seg_tpu/ops/pallas_cutmix.py:46",
-        "launches": full["launches"].get(KERNEL, 0), "max_abs_err": k["max_abs_err"],
+        "launches": trainer["launches"], "max_abs_err": k["max_abs_err"],
+        "launches_by_path": {"step (phase 4)": full["launches"].get(KERNEL, 0),
+                             "trainer (phase 6)": trainer["launches"],
+                             "trainer --resume (phase 6)": trainer["launches_resume"]},
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
         "kernel_us": k["ms"] * 1e3, "plain_us": k["plain_ms"] * 1e3,

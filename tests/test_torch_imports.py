@@ -41,7 +41,8 @@ def _imported_roots(path: Path):
 
 
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "scripts" / "torch_step_profile.py"]
+                                         ROOT / "scripts" / "torch_step_profile.py",
+                                         ROOT / "scripts" / "torch_trainer_profile.py"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
