@@ -15,10 +15,15 @@ Phases, in order; any failure exits non-zero before the result lines:
      floor (one pixel), and the same calls after a flush that leaves L2
      clean;
   3. small model, GPU vs CPU: the tiny DeepLab v2 in f32 (TF32 off) for two
-     mask_mt steps with injected rects, held against the port's own CPU run;
+     steps of each algorithm (mask_mt, ICT, VAT with a fixed and an adaptive
+     radius, aug_mt) with injected rects / lambdas / noise / pair matrices,
+     held against the port's own CPU run;
   4. full width: DeepLab v2 R101, bf16, the bench.py recipe at bs 10+10+10,
      321x321: 3 warm-up and 10 timed steps through create_train_state and
      make_mask_mt_step; losses finite, one kernel launch per step;
+  4b. the same for the ICT, VAT (adaptive radius 1.0, cons_weight 0.1) and
+     aug_mt steps of the recipe: finite losses, no kernel launch, ms/step and
+     peak memory beside phase 4; and what VAT's noise does in bf16;
   5. augmentation and eval, card against CPU: host batches of a synthetic
      VOC tree from the port's loader (10 images, 321x321 crops from 512x512
      canvases) through augment_batch on the gather path (crop_rotate_scale,
@@ -33,6 +38,9 @@ Phases, in order; any failure exits non-zero before the result lines:
      model.pt, the restored state equal to the saved one bit for bit, the
      resumed run starting at epoch 3; the trainer's ms/iteration and img/s
      beside phase 4's bare step;
+  6b. the ICT, VAT and aug_mt trainers with the recipe's lines on that tree,
+     1 epoch x 10 iterations each: an epoch line with finite losses and a VAL
+     mIoU, a checkpoint, no kernel launch, ms/iteration;
   7. the kernel summary line and, last, the device line.
 
 Imports nothing of JAX: it runs where only PyTorch and the CUDA toolkit are.
@@ -70,8 +78,16 @@ from cutmix_seg_tpu_torch.ops.colour import (
 )
 from cutmix_seg_tpu_torch.ops.cutmix import KERNEL, cutmix_blend, cutmix_blend_plain
 from cutmix_seg_tpu_torch.ops.iou import confusion_matrix
+from cutmix_seg_tpu_torch.semisup.aug_cons import AugConsConfig, make_aug_cons_step
+from cutmix_seg_tpu_torch.semisup.ict import ICTConfig, make_ict_step, sample_beta
 from cutmix_seg_tpu_torch.semisup.mask_mt import MaskConsistencyConfig, make_mask_mt_step
-from cutmix_seg_tpu_torch.train import common
+from cutmix_seg_tpu_torch.semisup.vat import (
+    VATConfig,
+    _normalize_per_sample,
+    adversarial_input,
+    make_vat_step,
+)
+from cutmix_seg_tpu_torch.train import aug_mt, common, ict, vat_mt
 from cutmix_seg_tpu_torch.train.mask_mt import experiment, train_seg_semisup_mask_mt
 
 # H100 SXM data sheet: HBM rate and the float32 rate outside the tensor cores
@@ -275,75 +291,164 @@ def _tiny_weights(seed):
     return out
 
 
+def _tiny_batch(algo: str, n: int, h: int, w: int, rng) -> dict:
+    """numpy batch of the tiny model's steps. ICT's and VAT's student images
+    differ from the teacher's, as colour jitter makes them."""
+    nb = {"sup_x": rng.randn(n, h, w, 3).astype(np.float32),
+          "sup_y": rng.randint(0, 4, size=(n, h, w)).astype(np.int64)}
+
+    def img():
+        return rng.randn(n, h, w, 3).astype(np.float32)
+
+    def mask():
+        return (rng.rand(n, h, w, 1) > 0.2).astype(np.float32)
+
+    if algo in ("mask_mt", "ict"):
+        for k in ("ux0", "ux1"):
+            nb[f"{k}_tea"] = img()
+            nb[f"{k}_stu"] = nb[f"{k}_tea"] + (0.3 * img() if algo == "ict" else 0.0)
+        nb["um0"], nb["um1"] = mask(), mask()
+    elif algo.startswith("vat"):
+        nb["ux_tea"] = img()
+        nb["ux_stu"] = nb["ux_tea"] + 0.3 * img()
+        nb["um"] = mask()
+    else:
+        nb["ux0"], nb["ux1"], nb["um0"], nb["um1"] = img(), img(), mask(), mask()
+        # the pair transform: rotation up to 0.3 rad, shifts up to 0.4, so
+        # some taps leave the image
+        ang, t = rng.uniform(-0.3, 0.3, n), rng.uniform(-0.4, 0.4, (n, 2))
+        xf = np.zeros((n, 2, 3), np.float32)
+        xf[:, 0, 0], xf[:, 0, 1], xf[:, 1, 0], xf[:, 1, 1] = (np.cos(ang), -np.sin(ang),
+                                                              np.sin(ang), np.cos(ang))
+        xf[:, :, 2] = t
+        nb["xf0_to_1"] = xf
+    return nb
+
+
+def _tiny_draws(algo: str, n: int, h: int, w: int, rng) -> dict:
+    """One step's injected draws, the same on both devices (the JAX steps
+    draw them from their key, the port's from the state's generator)."""
+    if algo == "mask_mt":
+        return {"rects": sample_box_rects_np(BoxMaskConfig((0.5, 0.5)), n, (h, w), rng)}
+    if algo == "ict":
+        g = torch.Generator().manual_seed(int(rng.randint(1 << 30)))
+        return {"lam": sample_beta(0.5, (n, 1, 1, 1), g).numpy()}
+    if algo.startswith("vat"):
+        eps = _normalize_per_sample(torch.from_numpy(rng.randn(n, h, w, 3).astype(np.float32)))
+        return {"eps0": (eps * (1.0e-6 * h * w / 1000.0)).numpy()}
+    return {}  # aug_mt draws nothing
+
+
+# phase 3: (config, step factory); the gate threshold is one the tiny
+# model's confidences cross
+TINY_ALGOS = {
+    "mask_mt": (MaskConsistencyConfig(conf_thresh=0.34), make_mask_mt_step),
+    "ict": (ICTConfig(ict_alpha=0.5, conf_thresh=0.34), make_ict_step),
+    "vat_fixed": (VATConfig(vat_radius=0.5, conf_thresh=0.34), make_vat_step),
+    "vat_adaptive": (VATConfig(vat_radius=1.0, adaptive_vat_radius=True, cons_weight=0.1,
+                               conf_thresh=0.34), make_vat_step),
+    "aug_mt": (AugConsConfig(conf_thresh=0.34), make_aug_cons_step),
+}
+
+
 def phase_small_step() -> None:
+    """Each algorithm's step on the tiny model, GPU against CPU: f32, TF32
+    off, two steps with the same injected draws."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     n, h, w, steps, lr = 2, 33, 33, 2, 3e-4
-    rng = np.random.RandomState(0)
-    nb = {"sup_x": rng.randn(n, h, w, 3).astype(np.float32),
-          "sup_y": rng.randint(0, 4, size=(n, h, w)).astype(np.int64),
-          "um0": (rng.rand(n, h, w, 1) > 0.2).astype(np.float32),
-          "um1": (rng.rand(n, h, w, 1) > 0.2).astype(np.float32)}
-    for k in ("ux0", "ux1"):
-        nb[f"{k}_tea"] = nb[f"{k}_stu"] = rng.randn(n, h, w, 3).astype(np.float32)
-    rects = [sample_box_rects_np(BoxMaskConfig((0.5, 0.5)), n, (h, w), rng)
-             for _ in range(steps)]
-    cfg = MaskConsistencyConfig(conf_thresh=0.34)
     sd = _tiny_weights(3)
-    runs = {}
-    for device in ("cpu", "cuda"):
-        model, state, opt = _tiny_state(device, sd)
-        step = make_mask_mt_step(model, opt, cfg)
-        batch = {k: torch.from_numpy(v).to(device) for k, v in nb.items()}
-        metrics = []
-        for r in rects:
-            state, m = step(state, batch, 1.0, rects=torch.from_numpy(r).to(device))
-            metrics.append({k: v.item() for k, v in m.items()})
-        runs[device] = (metrics, {k: v.cpu() for k, v in state.student.state_dict().items()})
     one_gate = 1.0 / (n * h * w)
-    for i, (mc, mg) in enumerate(zip(runs["cpu"][0], runs["cuda"][0])):
-        note(f"[small] step {i}: cpu {mc} cuda {mg}")
-        # conv sums run in another order on the card: rtol 1e-4 on the CE;
-        # the gate is a mean of 0/1 values, so a pixel whose confidence lies
-        # within rounding of the threshold may flip: allow two flips
-        ok = (math.isclose(mc["sup_loss"], mg["sup_loss"], rel_tol=1e-4)
-              and abs(mc["conf_rate"] - mg["conf_rate"]) <= 2 * one_gate + 1e-7
-              and math.isclose(mc["cons_loss"], mg["cons_loss"], rel_tol=1e-4 + 4 * one_gate))
-        if not ok:
-            raise RuntimeError(f"small-model step {i}: GPU and CPU disagree")
-    # Adam moves a noise-level gradient's element by up to 2 lr per step
-    worst = max((runs["cpu"][1][k] - runs["cuda"][1][k]).abs().max().item()
-                for k in runs["cpu"][1])
-    note(f"[small] max |param cpu - cuda| after {steps} steps: {worst:.3g} "
-         f"(bound 2*lr*steps = {2 * lr * steps:.3g})")
-    if worst > 2 * lr * steps + 1e-6:
-        raise RuntimeError("small-model params diverge between GPU and CPU")
+    for algo, (cfg, make_step) in TINY_ALGOS.items():
+        rng = np.random.RandomState(0)
+        nb = _tiny_batch(algo, n, h, w, rng)
+        draws = [_tiny_draws(algo, n, h, w, rng) for _ in range(steps)]
+        runs = {}
+        for device in ("cpu", "cuda"):
+            model, state, opt = _tiny_state(device, sd)
+            step = make_step(model, opt, cfg)
+            batch = {k: torch.from_numpy(v).to(device) for k, v in nb.items()}
+            metrics = []
+            for d in draws:
+                kw = {k: torch.from_numpy(v).to(device) for k, v in d.items()}
+                state, m = step(state, batch, 1.0, **kw)
+                metrics.append({k: v.item() for k, v in m.items()})
+            runs[device] = (metrics, {k: v.cpu() for k, v in state.student.state_dict().items()})
+        for i, (mc, mg) in enumerate(zip(runs["cpu"][0], runs["cuda"][0])):
+            note(f"[small] {algo} step {i}: cpu {mc} cuda {mg}")
+            # conv sums run in another order on the card: rtol 1e-4 on the CE;
+            # the gate is a mean of 0/1 values, so a pixel whose confidence
+            # lies within rounding of the threshold may flip: allow two flips
+            ok = (math.isclose(mc["sup_loss"], mg["sup_loss"], rel_tol=1e-4)
+                  and abs(mc["conf_rate"] - mg["conf_rate"]) <= 2 * one_gate + 1e-7
+                  and math.isclose(mc["cons_loss"], mg["cons_loss"],
+                                   rel_tol=1e-4 + 4 * one_gate))
+            if not ok:
+                raise RuntimeError(f"small-model {algo} step {i}: GPU and CPU disagree")
+        # Adam moves a noise-level gradient's element by up to 2 lr per step
+        worst = max((runs["cpu"][1][k] - runs["cuda"][1][k]).abs().max().item()
+                    for k in runs["cpu"][1])
+        note(f"[small] {algo}: max |param cpu - cuda| after {steps} steps: {worst:.3g} "
+             f"(bound 2*lr*steps = {2 * lr * steps:.3g})")
+        if worst > 2 * lr * steps + 1e-6:
+            raise RuntimeError(f"small-model {algo} params diverge between GPU and CPU")
 
 
-def make_full_step():
-    """The bench.py recipe on the port: (state, step, batch) on the card."""
+# phase 4b: the Pascal recipe's lines of the other algorithms
+# (run_pascal_aug_experiments.sh:22-24)
+FULL_ALGOS = ("ict", "vat_mt", "aug_mt")
+
+
+def make_full_step(algorithm: str = "mask_mt"):
+    """The bench.py recipe on the port for ``algorithm`` (mask_mt: CutMix;
+    ict, vat_mt, aug_mt: the recipe's lines): (state, step, batch) on the
+    card. The unsupervised images are 10 + 10 for mask_mt and ICT, 10 for
+    VAT and aug_mt (one crop pair per image)."""
     torch.backends.cudnn.benchmark = True
     model = resnet101_deeplab_imagenet(NUM_CLASSES, dtype=torch.bfloat16, pretrained=False)
     state, opt = create_train_state(
         model, OptimizerConfig(opt_type="adam", learning_rate=3e-5), 0, pretrained=False)
-    cfg = MaskConsistencyConfig(
-        mask_mode="mix", box=BoxMaskConfig((0.5, 0.5)), cons_weight=1.0, conf_thresh=0.97,
-        conf_per_pixel=False, freeze_bn=True, mean_teacher=True, teacher_alpha=0.99,
-        remat_loss_chain=True, loss_softmax_dtype="bfloat16")
-    step = make_mask_mt_step(model, opt, cfg)
+    common_kw = dict(cons_weight=1.0, conf_thresh=0.97, conf_per_pixel=False,
+                     freeze_bn=True, mean_teacher=True, teacher_alpha=0.99)
     gen = torch.Generator(device="cuda").manual_seed(0)
     shape = (BATCH, CROP, CROP, 3)
+    ones = torch.ones(shape[:3] + (1,), device="cuda")
     batch = {"sup_x": torch.randn(shape, generator=gen, device="cuda"),
-             "sup_y": torch.randint(0, NUM_CLASSES, shape[:3], generator=gen, device="cuda"),
-             "um0": torch.ones(shape[:3] + (1,), device="cuda"),
-             "um1": torch.ones(shape[:3] + (1,), device="cuda")}
-    for k in ("ux0", "ux1"):
-        batch[f"{k}_tea"] = batch[f"{k}_stu"] = torch.randn(shape, generator=gen, device="cuda")
+             "sup_y": torch.randint(0, NUM_CLASSES, shape[:3], generator=gen, device="cuda")}
+    if algorithm in ("mask_mt", "ict"):
+        for k in ("ux0", "ux1"):
+            batch[f"{k}_tea"] = batch[f"{k}_stu"] = torch.randn(shape, generator=gen,
+                                                                device="cuda")
+        batch["um0"], batch["um1"] = ones, ones
+    if algorithm == "mask_mt":
+        step = make_mask_mt_step(model, opt, MaskConsistencyConfig(
+            mask_mode="mix", box=BoxMaskConfig((0.5, 0.5)), remat_loss_chain=True,
+            loss_softmax_dtype="bfloat16", **common_kw))
+    elif algorithm == "ict":
+        step = make_ict_step(model, opt, ICTConfig(ict_alpha=0.1, **common_kw))
+    elif algorithm == "vat_mt":
+        batch["ux_tea"] = batch["ux_stu"] = torch.randn(shape, generator=gen, device="cuda")
+        batch["um"] = ones
+        step = make_vat_step(model, opt, VATConfig(
+            vat_radius=1.0, adaptive_vat_radius=True, **dict(common_kw, cons_weight=0.1)))
+    elif algorithm == "aug_mt":
+        batch["ux0"] = torch.randn(shape, generator=gen, device="cuda")
+        batch["ux1"] = torch.randn(shape, generator=gen, device="cuda")
+        batch["um0"], batch["um1"] = ones, ones
+        # crop 1 is crop 0 shifted by up to 16 px (the --aug_offset_range
+        # default) in grid units
+        xf = torch.eye(2, 3, device="cuda").repeat(BATCH, 1, 1)
+        xf[:, :, 2] = (torch.rand((BATCH, 2), generator=gen, device="cuda") * 2 - 1) \
+            * (16.0 * 2 / (CROP - 1))
+        batch["xf0_to_1"] = xf
+        step = make_aug_cons_step(model, opt, AugConsConfig(**common_kw))
+    else:
+        raise ValueError(f"unknown algorithm {algorithm!r}")
     return state, step, batch
 
 
-def phase_full_step() -> dict:
-    state, step, batch = make_full_step()
+def phase_full_step(algorithm: str = "mask_mt") -> dict:
+    state, step, batch = make_full_step(algorithm)
     n_params = sum(p.numel() for p in state.student.parameters())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -354,7 +459,7 @@ def phase_full_step() -> dict:
     for _ in range(WARMUP):
         state, m = step(state, batch, 1.0)
         if not all(math.isfinite(v.item()) for v in m.values()):
-            raise RuntimeError(f"non-finite warm-up metrics {m}")
+            raise RuntimeError(f"{algorithm}: non-finite warm-up metrics {m}")
     warm_s = time.perf_counter() - t0
     timed = []
     t0 = time.perf_counter()
@@ -366,15 +471,19 @@ def phase_full_step() -> dict:
     launches = dict(build.launch_counts)
 
     for m in timed:
-        if not all(math.isfinite(v.item()) for v in m.values()):
-            raise RuntimeError(f"non-finite metrics {m}")
-    if launches.get(KERNEL, 0) != WARMUP + ITERS:
-        raise RuntimeError(f"expected one {KERNEL} launch per step, got {launches}")
+        if sorted(m) != ["conf_rate", "cons_loss", "sup_loss"] or not all(
+                math.isfinite(v.item()) for v in m.values()):
+            raise RuntimeError(f"{algorithm}: non-finite or missing metrics {m}")
+    # CutMix mask_mt blends with the kernel once per step; the other
+    # algorithms never call it
+    want = WARMUP + ITERS if algorithm == "mask_mt" else 0
+    if launches.get(KERNEL, 0) != want:
+        raise RuntimeError(f"{algorithm}: expected {want} {KERNEL} launches, got {launches}")
     if state.step != WARMUP + ITERS or torch.equal(
             w0, state.student.layer5.conv2d_list[0].weight):
-        raise RuntimeError("the student did not update")
+        raise RuntimeError(f"{algorithm}: the student did not update")
     with torch.no_grad():
-        logits = state.teacher(batch["ux0_tea"][:2])
+        logits = state.teacher(batch["sup_x"][:2])
     if logits.shape != (2, CROP, CROP, NUM_CLASSES) or not bool(torch.isfinite(logits).all()):
         raise RuntimeError(f"teacher logits {tuple(logits.shape)} not finite/expected")
     ms = dt / ITERS * 1e3
@@ -382,11 +491,40 @@ def phase_full_step() -> dict:
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
               "warmup_s": warm_s, "launches": launches, "params": n_params,
               "last": {k: v.item() for k, v in timed[-1].items()}}
-    note(f"[full] R101 bf16 bs {BATCH}+{BATCH}+{BATCH} {CROP}^2 ({n_params} params): "
+    unsup = 2 * BATCH if algorithm in ("mask_mt", "ict") else BATCH
+    tag = "full" if algorithm == "mask_mt" else f"full {algorithm}"
+    note(f"[{tag}] R101 bf16 bs {BATCH}+{unsup} {CROP}^2 ({n_params} params): "
          f"{ms:.2f} ms/step, {result['img_per_s']:.2f} img/s, peak "
          f"{result['peak_mem_gib']:.2f} GiB, warm-up {warm_s:.1f} s, launches {launches}, "
          f"last metrics {result['last']}")
+    if algorithm == "vat_mt":
+        result["eps_probe"] = _vat_eps_probe(state, batch)
     return result
+
+
+def _vat_eps_probe(state, batch) -> dict:
+    """What VAT's noise does at full width in bf16. eps0 is ~1.9e-7 per
+    element at 321^2; the model casts its input to bf16 (8 bits of
+    mantissa), so x + eps and x give the same bf16 input almost everywhere.
+    With x_tea == x_stu (colour jitter off) the power step's gradient is
+    then the var loss's gradient at its minimum, 0, and x_adv == x_stu."""
+    cfg = VATConfig(vat_radius=1.0, adaptive_vat_radius=True, cons_weight=0.1)
+    x = batch["ux_stu"]
+    n, h, w, _ = x.shape
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    eps0 = _normalize_per_sample(torch.randn(x.shape, generator=gen, device="cuda")) \
+        * (1.0e-6 * h * w / 1000.0)
+    visible = ((x + eps0).bfloat16() != x.bfloat16()).float().mean().item()
+    same = adversarial_input(cfg, state.teacher, x, x, eps0)
+    jittered = x + 0.05 * torch.randn(x.shape, generator=gen, device="cuda")
+    moved = adversarial_input(cfg, state.teacher, jittered, x, eps0)
+    out = {"eps_l2_per_sample": eps0.reshape(n, -1).norm(dim=1).mean().item(),
+           "eps_abs_mean": eps0.abs().mean().item(),
+           "bf16_input_changed_share": visible,
+           "x_adv_equals_x_stu_when_x_tea_is_x_stu": bool(torch.equal(same, x)),
+           "x_adv_moves_when_x_tea_differs": bool(not torch.equal(moved, x))}
+    note(f"[full vat_mt] eps probe: {out}")
+    return out
 
 
 def _sync(device) -> None:
@@ -506,23 +644,40 @@ def phase_augment_eval(voc_root: str, dev: str = "cuda") -> dict:
     return {"aug_max_abs_err": worst, "h2d_ms": h2d_ms, "aug_ms": aug_ms, "cm_ms": cm_ms}
 
 
-# the Pascal recipe (run_pascal_aug_experiments.sh) on the synthetic VOC tree
-RECIPE_FLAGS = [
+# the Pascal recipe (run_pascal_aug_experiments.sh: PARAMS_PASCALAUG_DEEPLAB2I
+# and AUG_PASCAL, at this tree's size) on the synthetic VOC tree
+RECIPE_COMMON = [
     "--dataset=pascal", "--arch=resnet101_deeplab_imagenet", "--freeze_bn",
     "--batch_size=10", "--learning_rate=3e-5", "--crop_size=321,321", "--aug_hflip",
-    "--aug_scale_hung", "--aug_strong_colour", "--cons_weight=1.0", "--mask_mode=mix",
-    "--mask_prop_range=0.5", "--conf_thresh=0.97", "--n_sup=20", "--no_pretrained",
-    "--save_model", f"--iters_per_epoch={TRAIN_ITERS}",
+    "--aug_scale_hung", "--aug_strong_colour", "--n_sup=20", "--no_pretrained",
+    f"--iters_per_epoch={TRAIN_ITERS}",
 ]
+# phase 6: the CutMix line (REG_MASK_CUTMIX)
+RECIPE_FLAGS = RECIPE_COMMON + ["--cons_weight=1.0", "--mask_mode=mix",
+                                "--mask_prop_range=0.5", "--conf_thresh=0.97", "--save_model"]
+# phase 6b: the ICT, VAT and aug_mt lines (REG_ICT01, REG_VAT_ADARAD1_CW01,
+# REG_AUG_SEMISUP; run_pascal_aug_experiments.sh:22-24)
+RECIPE_ALGOS = {
+    "ict": (ict.experiment, ict.train_seg_semisup_ict,
+            ["--cons_weight=1.0", "--ict_alpha=0.1", "--conf_thresh=0.97"]),
+    "vat_mt": (vat_mt.experiment, vat_mt.train_seg_semisup_vat_mt,
+               ["--adaptive_vat_radius", "--vat_radius=1.0", "--cons_weight=0.1",
+                "--conf_thresh=0.97"]),
+    "aug_mt": (aug_mt.experiment, aug_mt.train_seg_semisup_aug_mt,
+               ["--cons_weight=1.0", "--conf_thresh=0.97"]),
+}
 
 
-def _run_trainer(results: str, flags, device) -> tuple:
-    """Parse ``flags`` with the port's click command, then run the trainer
-    through job.submit: (engine, kernel launches in the run, log text)."""
-    params = dict(experiment.make_context("experiment", list(flags)).params)
+def _run_trainer(results: str, flags, device, algorithm: str = "mask_mt") -> tuple:
+    """Parse ``flags`` with the port's click command of ``algorithm``, then
+    run its trainer through job.submit: (engine, kernel launches in the run,
+    log text)."""
+    cmd, fn = ((experiment, train_seg_semisup_mask_mt) if algorithm == "mask_mt"
+               else RECIPE_ALGOS[algorithm][:2])
+    params = dict(cmd.make_context("experiment", list(flags)).params)
     del params["job_desc"]
     build.launch_counts.clear()
-    engine = job.submit("chip_smoke_mask_mt", "run", train_seg_semisup_mask_mt,
+    engine = job.submit(f"chip_smoke_{algorithm}", "run", fn,
                         dict(params, device=device), results_root=results)
     launches = build.launch_counts.get(KERNEL, 0)
     with open(os.path.join(engine.ctx.run_dir, "log_run.txt")) as f:
@@ -634,6 +789,40 @@ def phase_trainer(voc_root: str, step_ms: float, device=None) -> dict:
     return result
 
 
+def phase_trainers_algos(voc_root: str, step_ms: dict, device=None) -> dict:
+    """The ICT, VAT and aug_mt trainers at full width, one epoch of
+    TRAIN_ITERS iterations each with the recipe's lines: an epoch line with
+    finite losses and a VAL mIoU, a checkpoint, no CutMix launch."""
+    results = os.path.join(os.path.dirname(voc_root), "results")
+    out = {}
+    for algo, (_, _, reg) in RECIPE_ALGOS.items():
+        engine, launches, log = _run_trainer(
+            results, RECIPE_COMMON + reg + ["--num_epochs=1"], device, algo)
+        line = _epoch_line(log, 1)
+        ckpts = sorted(os.listdir(engine.ctx.checkpoint_dir))
+        if ckpts != [f"ckpt_{TRAIN_ITERS:09d}.pt"]:
+            raise RuntimeError(f"{algo}: unexpected checkpoints {ckpts}")
+        if launches != 0:
+            raise RuntimeError(f"{algo}: expected no {KERNEL} launch, got {launches}")
+        if engine.state.step != TRAIN_ITERS:
+            raise RuntimeError(f"{algo}: the run ended at step {engine.state.step}")
+        with open(os.path.join(engine.ctx.run_dir, "metrics_run.jsonl")) as f:
+            rec = json.loads(f.readline())
+        ms_iter = rec["train_time"] / TRAIN_ITERS * 1e3
+        out[algo] = {"ms_per_iter": ms_iter, "img_per_s": TRAIN_ITERS * BATCH / rec["train_time"],
+                     "eval_ms_per_batch": rec["eval_time"] / -(-VOC_VAL // BATCH) * 1e3,
+                     "epoch_s": rec["epoch_time"], "launches": launches, "losses": line,
+                     "val_miou": rec["val_miou"]}
+        note(f"[trainer {algo}] Pascal recipe line {' '.join(reg)}: epoch 1 {line}, VAL mIoU "
+             f"{rec['val_miou']:.4f}; {ms_iter:.2f} ms/iteration ({out[algo]['img_per_s']:.2f} "
+             f"img/s, the epoch's first iteration included) beside the bare step "
+             f"{step_ms[algo]:.2f} ms/step (phase 4b); eval "
+             f"{out[algo]['eval_ms_per_batch']:.1f} ms per val batch; checkpoint {ckpts}; "
+             f"{launches} {KERNEL} launches")
+        del engine
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU",
@@ -644,10 +833,20 @@ def main() -> int:
     k = phase_kernel_vs_plain()
     phase_small_step()
     full = phase_full_step()
+    full_algos = {}
+    for algo in FULL_ALGOS:
+        torch.cuda.empty_cache()
+        full_algos[algo] = phase_full_step(algo)
+    note("[full] bare step beside phase 4's mask_mt in this call: " + ", ".join(
+        f"{a} {r['ms_per_step']:.2f} ms/step ({r['img_per_s']:.2f} img/s, peak "
+        f"{r['peak_mem_gib']:.2f} GiB)"
+        for a, r in [("mask_mt", full)] + list(full_algos.items())))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         voc_root = write_voc_tree(os.path.join(tmp, "VOC2012"), VOC_TRAIN, VOC_VAL, seed=0)
         phase_augment_eval(voc_root)
         trainer = phase_trainer(voc_root, full["ms_per_step"])
+        trainers = phase_trainers_algos(
+            voc_root, {a: r["ms_per_step"] for a, r in full_algos.items()})
     kernels = [{
         "name": KERNEL, "route": "cuda",
         "source": "cutmix_seg_tpu_torch/csrc/cutmix_blend.cu",
@@ -655,7 +854,11 @@ def main() -> int:
         "launches": trainer["launches"], "max_abs_err": k["max_abs_err"],
         "launches_by_path": {"step (phase 4)": full["launches"].get(KERNEL, 0),
                              "trainer (phase 6)": trainer["launches"],
-                             "trainer --resume (phase 6)": trainer["launches_resume"]},
+                             "trainer --resume (phase 6)": trainer["launches_resume"],
+                             **{f"step {a} (phase 4b)": r["launches"].get(KERNEL, 0)
+                                for a, r in full_algos.items()},
+                             **{f"trainer {a} (phase 6b)": r["launches"]
+                                for a, r in trainers.items()}},
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
         "kernel_us": k["ms"] * 1e3, "plain_us": k["plain_ms"] * 1e3,

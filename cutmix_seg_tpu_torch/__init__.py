@@ -9,10 +9,13 @@ channels_last NCHW view, which cuDNN takes without a copy.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without
 a GPU and without that argument they raise:
-  * the trainer, ``python -m cutmix_seg_tpu_torch.train.mask_mt`` (the JAX
-    CLI's flags; ``train.mask_mt.train_seg_semisup_mask_mt``);
-  * the step alone, ``core.train_state.create_train_state`` and
-    ``semisup.mask_mt.make_mask_mt_step``.
+  * the trainers, ``python -m cutmix_seg_tpu_torch.train.<algorithm>`` for
+    mask_mt (CutMix / Cutout), ict, vat_mt and aug_mt (the JAX CLIs' flags;
+    ``train.<algorithm>.train_seg_semisup_<algorithm>``);
+  * the steps alone, ``core.train_state.create_train_state`` and
+    ``semisup.{mask_mt,ict,vat,aug_cons}.make_*_step``;
+  * ``python -m cutmix_seg_tpu_torch.tools.synthetic_benchmark`` (``--device
+    cpu`` for the CPU).
 
 The one hand-written kernel is the fused box-mask rasterise + CutMix blend
 (``csrc/cutmix_blend.cu``, wrapped by ``ops.cutmix.cutmix_blend``). It is
@@ -30,8 +33,11 @@ Layout:
   masks/     box mask (CutMix/Cutout) rect sampling + rasterisation
   models/    DeepLab v2 (dilated ResNet-101 + summed ASPP), weights bridge,
              registry
-  ops/       kernel build/load, the CutMix kernel wrapper, colour jitter, IoU
-  semisup/   losses, EMA teacher, shared step pieces, the mask_mt step
-  train/     the CLI options, the training engine, the mask_mt trainer
+  ops/       kernel build/load, the CutMix kernel wrapper, colour jitter, IoU,
+             affine grid sampling (aug_mt's warps)
+  semisup/   losses, EMA teacher, shared step pieces, the mask_mt, ICT, VAT and
+             aug_mt steps
+  tools/     the synthetic convergence benchmark
+  train/     the CLI options, the training engine, the four trainers
   utils/     device resolution, consistency ramp-up
 """

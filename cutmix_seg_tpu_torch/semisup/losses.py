@@ -77,6 +77,30 @@ def consistency_loss_per_pixel(loss_fn: str, logits_stu: torch.Tensor,
     raise ValueError(f"unknown consistency loss {loss_fn!r}")
 
 
+def consistency_from_prob_targets(loss_fn: str, logits_stu: torch.Tensor,
+                                  logits_tea: torch.Tensor,
+                                  prob_tea: torch.Tensor) -> torch.Tensor:
+    """Per-pixel consistency loss (N, H, W, 1) against teacher probability
+    targets that are not ``softmax(logits_tea)``: ICT blends the teacher's
+    probabilities across the mixup pair, aug_mt warps them into the
+    student's frame. Prob-space losses (var, bce, kld) take ``prob_tea`` as
+    the target; logit-space losses (logits_var, logits_smoothl1) take
+    ``logits_tea``. Inputs are float32."""
+    if loss_fn == "var":
+        d = F.softmax(logits_stu, dim=-1) - prob_tea
+        return (d * d).sum(dim=-1, keepdim=True)
+    if loss_fn in ("logits_var", "logits_smoothl1"):
+        return consistency_loss_per_pixel(loss_fn, logits_stu, logits_tea)
+    if loss_fn == "bce":
+        return robust_binary_crossentropy(
+            F.softmax(logits_stu, dim=-1), prob_tea).sum(dim=-1, keepdim=True)
+    if loss_fn == "kld":
+        logp_stu = F.log_softmax(logits_stu, dim=-1)
+        safe_p = torch.clamp_min(prob_tea, 1e-20)
+        return (prob_tea * (torch.log(safe_p) - logp_stu)).sum(dim=-1, keepdim=True)
+    raise ValueError(f"unknown consistency loss {loss_fn!r}")
+
+
 def confidence_mask(prob_tea: torch.Tensor, conf_thresh: float, per_pixel: bool):
     """Teacher-confidence gating.
 

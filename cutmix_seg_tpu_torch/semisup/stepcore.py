@@ -1,16 +1,18 @@
 """Pieces shared by the semi-supervised train steps (port of
 cutmix_seg_tpu.semisup.stepcore): the common options, confidence gating, the
-masked per-sub-batch consistency reduction and the end of a step (optimiser
-update, EMA teacher update, step advance)."""
+masked per-sub-batch consistency reduction, the student's forward/backward
+and the end of a step (optimiser update, EMA teacher update, step
+advance)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from cutmix_seg_tpu_torch.core.train_state import Optimizer, TrainState
+from cutmix_seg_tpu_torch.semisup import losses as L
 from cutmix_seg_tpu_torch.semisup.ema import ema_update, float_tensors
 
 
@@ -60,6 +62,50 @@ def confidence_px(cfg: ConsistencyCommon, conf_tea: torch.Tensor):
     if cfg.conf_thresh > 0.0:
         return (conf_tea >= cfg.conf_thresh).float()
     return None
+
+
+def refuse_unported(cfg: ConsistencyCommon) -> None:
+    """Raise for the step options the port does not run yet."""
+    if cfg.grad_accum > 1:
+        raise NotImplementedError("grad_accum > 1 is not ported yet")
+    if not cfg.freeze_bn:
+        # flax updates BN running variance with the biased batch variance,
+        # torch's batch_norm with the unbiased one: training BN needs its own
+        # parity work
+        raise NotImplementedError("training BN (freeze_bn=False) is not ported yet")
+
+
+def student_backward(cfg: ConsistencyCommon, student: torch.nn.Module, batch,
+                     x_cons: Optional[torch.Tensor],
+                     per_px_fn: Callable[[torch.Tensor], torch.Tensor],
+                     loss_mask: Optional[torch.Tensor], conf_px: Optional[torch.Tensor],
+                     ramp: float) -> dict:
+    """The student's loss and backward: CE (ignore) on ``sup_x`` plus, with
+    ``x_cons``, ``ramp * cons_weight`` times the masked consistency of
+    ``per_px_fn(logits of x_cons)``. Under frozen BN one forward over
+    ``[sup_x | x_cons]`` is the JAX step's two forwards. Leaves the
+    gradients in ``.grad``; returns the metrics (device tensors)."""
+    sup_x = batch["sup_x"]
+    n = sup_x.shape[0]
+    logits_cons = None
+    if x_cons is not None and sup_x.shape[1:] == x_cons.shape[1:]:
+        logits = student(torch.cat([sup_x, x_cons]))
+        logits_sup, logits_cons = logits[:n], logits[n:]
+    else:
+        logits_sup = student(sup_x)
+        if x_cons is not None:
+            logits_cons = student(x_cons)
+    sup_loss = L.cross_entropy_ignore(logits_sup, batch["sup_y"], cfg.ignore_value)
+    metrics = {"sup_loss": sup_loss.detach()}
+    total = sup_loss
+    if logits_cons is not None:
+        loss_sum, loss_mean, conf_rate = masked_consistency(
+            cfg, per_px_fn(logits_cons), loss_mask, conf_px)
+        total = total + loss_sum * ramp * cfg.cons_weight
+        metrics["cons_loss"] = loss_mean.detach()
+        metrics["conf_rate"] = conf_rate.detach()
+    total.backward()
+    return metrics
 
 
 def finish_step(state: TrainState, opt: Optimizer,

@@ -30,9 +30,11 @@ import signal
 import time
 from typing import Callable
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
+from cutmix_seg_tpu_torch.aug import affine as host_affine
 from cutmix_seg_tpu_torch.aug.params import GeomConfig
 from cutmix_seg_tpu_torch.core import checkpoint as ckpt
 from cutmix_seg_tpu_torch.core import job
@@ -55,7 +57,8 @@ class AlgorithmSpec:
 
     make_step(model, opt) -> step(state, batch, ramp) -> (state, metrics).
     unsup_streams: number of independent unsupervised streams (mask_mt mix:
-        2; zero: 1).
+        2; others: 1). ICT draws twice from its single stream.
+    pair_geom: sample two correlated geometric transforms per image (aug_mt).
     fetch: fn(engine, streams) -> the host-side raw unsup batch (dicts of
         numpy arrays straight off the loaders).
     compose: fn(augmentor, raw, generator) -> the unsup part of the step's
@@ -64,6 +67,7 @@ class AlgorithmSpec:
 
     make_step: Callable
     unsup_streams: int
+    pair_geom: bool
     fetch: Callable
     compose: Callable
 
@@ -169,6 +173,12 @@ class TrainEngine:
             self.crop_hw, p["aug_scale_hung"], p["aug_max_scale"],
             p["aug_rot_mag"], p["aug_scale_non_uniform"], p["aug_hflip"],
             p["aug_vflip"], p["aug_hvflip"])
+        if "aug_offset_range" in p:
+            # aug_mt pair options (reference: train_seg_semisup_aug_mt.py CLI)
+            off = p["aug_offset_range"]
+            self.geom = dataclasses.replace(
+                self.geom, crop_offset=(off, off),
+                constrain_rot_scale=not p.get("aug_free_scale_rot", False))
         colour = (
             ColourJitterConfig(
                 brightness=p["aug_colour_brightness"],
@@ -187,7 +197,8 @@ class TrainEngine:
         self._sup_builder = HostBatchBuilder(
             self.ds, self.geom, with_labels=True, n_threads=p["num_workers"])
         self._unsup_builder = (HostBatchBuilder(
-            self.ds, self.geom, with_labels=False, n_threads=p["num_workers"])
+            self.ds, self.geom, with_labels=False, pair_geom=self.spec.pair_geom,
+            n_threads=p["num_workers"])
             if self.use_cons else None)
         self._seed = p.get("seed", 0)
         # streams are (re)opened per epoch with epoch-folded seeds
@@ -432,8 +443,8 @@ def _stop_profile(prof, device: torch.device, profile_dir: str) -> None:
 # ---- unsupervised batch composers ----
 #
 # Each algorithm is a (fetch, compose) pair: ``fetch`` runs on the host each
-# iteration and returns raw loader batches; ``compose`` augments them on the
-# device.
+# iteration and returns raw loader batches (each a dict of numpy arrays, as
+# ``make_raw_batch`` copies them); ``compose`` augments them on the device.
 
 def fetch_two_streams(engine: TrainEngine, streams):
     """mask_mt mix: one batch from each of the two unsup streams."""
@@ -441,12 +452,30 @@ def fetch_two_streams(engine: TrainEngine, streams):
 
 
 def fetch_one_stream(engine: TrainEngine, streams):
-    """mask_mt zero: a single unsup batch."""
+    """mask_mt zero and VAT: a single unsup batch."""
     return {"u": next(streams[0])}
 
 
+def fetch_ict(engine: TrainEngine, streams):
+    """ICT: two draws from ONE stream (reference: train_seg_semisup_ict.py:272-273)."""
+    return {"u0": next(streams[0]), "u1": next(streams[0])}
+
+
+def fetch_aug_pair(engine: TrainEngine, streams):
+    """aug_mt: one pair-geometry batch. The relative transform xf0->1 =
+    grid(m1 . inv(m0)) is composed on the host in float64 (reference:
+    datapipe/seg_data.py:219-232) and rides in the pair's dict as
+    ``xf_grid``."""
+    host = next(streams[0])
+    xf_cv = host_affine.compose(
+        host["m1"].astype(np.float64),
+        host_affine.invert(host["m0"].astype(np.float64)))
+    xf_grid = host_affine.cv_to_grid(xf_cv, engine.crop_hw).astype(np.float32)
+    return {"pair": dict(host, xf_grid=xf_grid)}
+
+
 def compose_mask_pair(augmentor, raw, generator):
-    """mask_mt mix: augment two unsup batches (colour pair each)."""
+    """mask_mt mix and ICT: augment two unsup batches (colour pair each)."""
     u0 = augmentor.unsup(raw["u0"], generator)
     u1 = augmentor.unsup(raw["u1"], generator)
     return dict(ux0_tea=u0["image"], ux0_stu=u0["image_stu"], um0=u0["mask"],
@@ -454,6 +483,19 @@ def compose_mask_pair(augmentor, raw, generator):
 
 
 def compose_mask_single(augmentor, raw, generator):
-    """mask_mt zero (Cutout): one augmented unsup batch."""
+    """mask_mt zero (Cutout) and VAT: one augmented unsup batch."""
     u = augmentor.unsup(raw["u"], generator)
     return dict(ux_tea=u["image"], ux_stu=u["image_stu"], um=u["mask"])
+
+
+def compose_aug_pair(augmentor, raw, generator):
+    """aug_mt: the two crops of each image. Element 0 (the teacher's) has no
+    colour jitter; element 1 (the student's) takes the jittered copy when
+    colour jitter is on (reference: train_seg_semisup_aug_mt.py:150-158)."""
+    host = raw["pair"]
+    b0 = dict(host, m=host["m0"], interp=host["interp0"])
+    b1 = dict(host, m=host["m1"], interp=host["interp1"])
+    u0 = dataclasses.replace(augmentor, colour=None).unsup(b0, None)
+    u1 = augmentor.unsup(b1, generator)
+    return dict(ux0=u0["image"], ux1=u1["image_stu"], um0=u0["mask"],
+                um1=u1["mask"], xf0_to_1=host["xf_grid"])

@@ -58,6 +58,7 @@ def build_spec(p):
     spec = AlgorithmSpec(
         make_step=lambda model, opt: make_mask_mt_step(model, opt, cfg),
         unsup_streams=2 if mask_mix else 1,
+        pair_geom=False,
         fetch=fetch_two_streams if mask_mix else fetch_one_stream,
         compose=compose_mask_pair if mask_mix else compose_mask_single,
     )

@@ -1,14 +1,16 @@
-"""Where the device time of the port's full-width mask_mt step goes.
+"""Where the device time of the port's full-width train step goes.
 
-    python3 scripts/torch_step_profile.py [--steps 5] [--out chiprun_out]
+    python3 scripts/torch_step_profile.py [--algorithm mask_mt] [--steps 5] [--out chiprun_out]
 
-Builds the full-width configuration of chip_smoke.py (DeepLab v2 R101, bf16,
-bs 10+10+10 at 321x321, the bench.py recipe) on one GPU, runs 3 warm-up
-steps, then records ``--steps`` steps with torch.profiler (CPU + CUDA). It
-prints the card, the window's wall time per step, the device-busy share
-(union of kernel intervals over the window), device time by kernel group and
-the top kernels, and writes the summary (``torch_step_profile.json``) and a
-Chrome trace (``torch_step_trace.json``) to ``--out``. Fails if the trace
+Builds the full-width configuration of chip_smoke.py for ``--algorithm``
+(DeepLab v2 R101, bf16, 321x321; mask_mt: the bench.py recipe at bs
+10+10+10; ict, vat_mt, aug_mt: the Pascal recipe's lines, phase 4b) on one
+GPU, runs 3 warm-up steps, then records ``--steps`` steps with
+torch.profiler (CPU + CUDA). It prints the card, the window's wall time per
+step, the device-busy share (union of kernel intervals over the window),
+device time by kernel group and the top kernels, and writes the summary
+(``torch_step_profile_<algorithm>.json``) and a Chrome trace
+(``torch_step_trace_<algorithm>.json``) to ``--out``. Fails if the trace
 holds no device time.
 """
 
@@ -36,6 +38,7 @@ GROUPS = (
     ("softmax", "softmax / log-softmax"),
     ("upsample", "upsample"),
     ("max_pool", "max pool"),
+    ("gather", "gather (aug_mt warps)"),
     ("reduce", "reductions"),
     ("conv", "convolution"), ("xmma", "convolution"), ("cudnn", "convolution"),
     ("gemm", "convolution"), ("cutlass", "convolution"), ("sm90", "convolution"),
@@ -53,6 +56,8 @@ def group_of(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--algorithm", default="mask_mt",
+                    choices=["mask_mt", "ict", "vat_mt", "aug_mt"])
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args()
@@ -64,7 +69,7 @@ def main() -> int:
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
 
-    state, step, batch = make_full_step()
+    state, step, batch = make_full_step(args.algorithm)
     for _ in range(3):
         state, m = step(state, batch, 1.0)
     torch.cuda.synchronize()
@@ -99,7 +104,7 @@ def main() -> int:
 
     per = args.steps
     summary = {
-        "device": smi, "steps": per,
+        "device": smi, "algorithm": args.algorithm, "steps": per,
         "wall_ms_per_step": wall_us / per / 1e3,
         "device_busy_ms_per_step": busy / per / 1e3,
         "device_busy_share": busy / wall_us,
@@ -111,11 +116,11 @@ def main() -> int:
                         for n, us in by_name.most_common(25)],
     }
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "torch_step_profile.json"), "w") as f:
+    with open(os.path.join(args.out, f"torch_step_profile_{args.algorithm}.json"), "w") as f:
         json.dump(summary, f, indent=1)
-    prof.export_chrome_trace(os.path.join(args.out, "torch_step_trace.json"))
+    prof.export_chrome_trace(os.path.join(args.out, f"torch_step_trace_{args.algorithm}.json"))
 
-    print(f"window: {summary['wall_ms_per_step']:.2f} ms/step wall, device busy "
+    print(f"{args.algorithm} window: {summary['wall_ms_per_step']:.2f} ms/step wall, device busy "
           f"{summary['device_busy_ms_per_step']:.2f} ms/step "
           f"({100 * summary['device_busy_share']:.1f}%), "
           f"{summary['kernel_launches_per_step']:.0f} kernels/step")

@@ -54,7 +54,10 @@ def test_no_jax_imports(path):
 def test_every_module_imports_on_cpu():
     names = [m.name for m in pkgutil.walk_packages(cutmix_seg_tpu_torch.__path__,
                                                    "cutmix_seg_tpu_torch.")]
-    assert "cutmix_seg_tpu_torch.semisup.mask_mt" in names
+    for mod in ("semisup.mask_mt", "semisup.ict", "semisup.vat", "semisup.aug_cons",
+                "ops.resample", "train.ict", "train.vat_mt", "train.aug_mt",
+                "tools.synthetic_benchmark"):
+        assert f"cutmix_seg_tpu_torch.{mod}" in names, mod
     for name in names:
         importlib.import_module(name)
 

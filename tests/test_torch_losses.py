@@ -73,9 +73,42 @@ def test_consistency_loss_value_and_grads(loss_fn):
     np.testing.assert_allclose(t.grad.numpy(), np.asarray(j_gt), rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("loss_fn", ["var", "logits_var", "logits_smoothl1", "bce", "kld"])
+def test_consistency_from_prob_targets_value_and_grad(loss_fn):
+    """Targets are a blend of two softmaxes (ICT's), with some exact zeros
+    so that kld's 1e-20 clamp is reached."""
+    rng = np.random.RandomState(4)
+    stu = (rng.randn(2, 4, 5, 7) * 2).astype(np.float32)
+    tea = (rng.randn(2, 4, 5, 7) * 2).astype(np.float32)
+    p0, p1 = (np.asarray(jax.nn.softmax(jnp.asarray(rng.randn(2, 4, 5, 7) * 3), axis=-1))
+              for _ in range(2))
+    lam = rng.rand(2, 1, 1, 1).astype(np.float32)
+    prob = (p0 * (1 - lam) + p1 * lam).astype(np.float32)
+    prob[0, 0, 0] = np.eye(7, dtype=np.float32)[2]
+    w = rng.rand(2, 4, 5, 1).astype(np.float32)
+
+    def jf(s):
+        return (JL.consistency_from_prob_targets(loss_fn, s, jnp.asarray(tea),
+                                                 jnp.asarray(prob)) * w).sum()
+
+    j_px = np.asarray(JL.consistency_from_prob_targets(
+        loss_fn, jnp.asarray(stu), jnp.asarray(tea), jnp.asarray(prob)))
+    j_gs = jax.grad(jf)(jnp.asarray(stu))
+    s = _t(stu, True)
+    px = TL.consistency_from_prob_targets(loss_fn, s, torch.from_numpy(tea),
+                                          torch.from_numpy(prob))
+    assert px.shape == (2, 4, 5, 1) and px.dtype == torch.float32
+    assert np.isfinite(px.detach().numpy()).all()
+    (px * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(px.detach().numpy(), j_px, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(s.grad.numpy(), np.asarray(j_gs), rtol=RTOL, atol=ATOL)
+
+
 def test_consistency_loss_unknown_raises():
     with pytest.raises(ValueError):
         TL.consistency_loss_per_pixel("nope", torch.zeros(1, 1, 1, 2), torch.zeros(1, 1, 1, 2))
+    with pytest.raises(ValueError):
+        TL.consistency_from_prob_targets("nope", *[torch.zeros(1, 1, 1, 2)] * 3)
 
 
 @pytest.mark.parametrize("per_pixel", [False, True])
