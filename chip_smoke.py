@@ -7,23 +7,35 @@ Phases, in order; any failure exits non-zero before the result lines:
      cutmix_seg_tpu_torch/csrc/ with nvcc (sm_90a) and time the build;
   2. kernel vs plain: the CutMix kernel against its plain PyTorch version on
      the card, bit-equal masks and blends, f32 and bf16, at the main-path
-     shape and the edge cases (unaligned views, ragged ends, 21 channels,
-     70,000 images); then timed with CUDA events at the main-path shape (L2
-     flushed before each launch): the kernel in f32 and bf16 beside its
-     bounds and beside torch.add of the same tensors (a bandwidth
-     yardstick), the plain version, the unaligned variant, the timing's
-     floor (one pixel), and the same calls after a flush that leaves L2
-     clean;
+     shape, the ISIC path's 10x224x224x3 and the edge cases (unaligned views,
+     ragged ends, 21 channels, 70,000 images); then timed with CUDA events at
+     the main-path shape (L2 flushed before each launch): the kernel in f32
+     and bf16 beside its bounds and beside torch.add of the same tensors (a
+     bandwidth yardstick), the plain version, the unaligned variant, the
+     timing's floor (one pixel), and the same calls after a flush that
+     leaves L2 clean; and the kernel and plain version at 224^2;
   3. small model, GPU vs CPU: the tiny DeepLab v2 in f32 (TF32 off) for two
      steps of each algorithm (mask_mt, ICT, VAT with a fixed and an adaptive
      radius, aug_mt) with injected rects / lambdas / noise / pair matrices,
      held against the port's own CPU run;
+  3b. the other families at tiny depth, GPU vs CPU in f32 with training BN
+     and dropout (masks drawn on the host, the same for both runs): DenseNet
+     features (2, 2, 2, 2) in a DenseUNet with CutMix, ResUNet with ICT,
+     DeepLab v3 with VAT, v3+ with aug_mt, PSPNet with the CutMix pi-model
+     (layers (1, 1, 1, 1)); losses, parameters and the running statistics of
+     student and teacher held as in phase 3;
   4. full width: DeepLab v2 R101, bf16, the bench.py recipe at bs 10+10+10,
      321x321: 3 warm-up and 10 timed steps through create_train_state and
      make_mask_mt_step; losses finite, one kernel launch per step;
   4b. the same for the ICT, VAT (adaptive radius 1.0, cons_weight 0.1) and
      aug_mt steps of the recipe: finite losses, no kernel launch, ms/step and
      peak memory beside phase 4; and what VAT's noise does in bf16;
+  4c. the two recipes' CutMix lines as bare steps at full width, 3 warm-up
+     and 10 timed, through the trainer's own step factory: DenseUNet-161 at
+     224^2 with training BN and dropout, SGD 0.1 poly (ISIC), and DeepLab v3+
+     R101 at 321^2 with frozen BN, Adam 1e-5 (Pascal); ms/step, img/s, peak
+     memory, one kernel launch per step, the DenseUNet's running statistics
+     moved and finite;
   5. augmentation and eval, card against CPU: host batches of a synthetic
      VOC tree from the port's loader (10 images, 321x321 crops from 512x512
      canvases) through augment_batch on the gather path (crop_rotate_scale,
@@ -41,6 +53,11 @@ Phases, in order; any failure exits non-zero before the result lines:
   6b. the ICT, VAT and aug_mt trainers with the recipe's lines on that tree,
      1 epoch x 10 iterations each: an epoch line with finite losses and a VAL
      mIoU, a checkpoint, no kernel launch, ms/iteration;
+  6c. on a synthetic ISIC zip, the ISIC recipe's seven lines at full width
+     (--no_pretrained, 1 epoch x 4 iterations each, fill-holes eval), the
+     CutMix line restored bit for bit (BN buffers and generator included)
+     and resumed for a second epoch; then the v3+ CutMix line on the
+     synthetic VOC tree (1 epoch x 5 iterations);
   7. the kernel summary line and, last, the device line.
 
 Imports nothing of JAX: it runs where only PyTorch and the CUDA toolkit are.
@@ -64,12 +81,24 @@ from cutmix_seg_tpu_torch.aug.device import augment_batch, border_for_mode
 from cutmix_seg_tpu_torch.aug.params import GeomConfig
 from cutmix_seg_tpu_torch.core import checkpoint, job
 from cutmix_seg_tpu_torch.core.train_state import OptimizerConfig, create_train_state
+from cutmix_seg_tpu_torch.data import settings
 from cutmix_seg_tpu_torch.data.loader import HostBatchBuilder, train_stream
 from cutmix_seg_tpu_torch.data.sources import PascalVOCDataSource
-from cutmix_seg_tpu_torch.data.synthetic import write_config, write_voc_tree
+from cutmix_seg_tpu_torch.data.synthetic import write_config, write_isic_zip, write_voc_tree
 from cutmix_seg_tpu_torch.masks.box_mask import BoxMaskConfig, sample_box_rects_np
-from cutmix_seg_tpu_torch.models.common import IMAGENET_MEAN, IMAGENET_STD, SegModel
+from cutmix_seg_tpu_torch.models.common import (
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+    Dropout,
+    SegModel,
+    eval_mode,
+    label_params_by_path,
+)
 from cutmix_seg_tpu_torch.models.deeplab2 import DeepLab2, _param_label, resnet101_deeplab_imagenet
+from cutmix_seg_tpu_torch.models.deeplab3 import DeepLabV3, DeepLabV3Plus
+from cutmix_seg_tpu_torch.models.denseunet import DenseUNet
+from cutmix_seg_tpu_torch.models.pspnet import PSPNet
+from cutmix_seg_tpu_torch.models.resunet import ResUNet
 from cutmix_seg_tpu_torch.ops import build
 from cutmix_seg_tpu_torch.ops.colour import (
     ColourJitterConfig,
@@ -88,13 +117,14 @@ from cutmix_seg_tpu_torch.semisup.vat import (
     make_vat_step,
 )
 from cutmix_seg_tpu_torch.train import aug_mt, common, ict, vat_mt
-from cutmix_seg_tpu_torch.train.mask_mt import experiment, train_seg_semisup_mask_mt
+from cutmix_seg_tpu_torch.train.mask_mt import build_spec, experiment, train_seg_semisup_mask_mt
 
 # H100 SXM data sheet: HBM rate and the float32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 
 MAIN_SHAPE = (10, 321, 321, 3)  # bench.py: 10 unsupervised images per batch, 321^2
+ISIC_SHAPE = (10, 224, 224, 3)  # the ISIC recipe's CutMix blend: 10 images, 224^2
 BATCH, CROP, NUM_CLASSES = 10, 321, 21
 WARMUP, ITERS = 3, 10
 # phase 5: augmented images agree within float32 rounding: source coordinates
@@ -179,6 +209,7 @@ def phase_kernel_vs_plain() -> dict:
     half = dict(prop_range=(0.5, 0.5))
     cases = {
         "main_path": (*MAIN_SHAPE, half, True, 0),
+        "isic_224": (*ISIC_SHAPE, half, True, 0),
         "two_boxes_64": (4, 64, 64, 3, dict(prop_range=(0.25, 0.75), n_boxes=2), True, 0),
         "odd_height_no_invert": (2, 33, 48, 1, dict(prop_range=(0.5, 0.5), invert=False),
                                  False, 0),
@@ -253,31 +284,50 @@ def phase_kernel_vs_plain() -> dict:
     note("[kernel] with L2 left clean before each launch: " + ", ".join(
         f"{name} {t * 1e3:.2f} us ({calls[name][1] / t / 1e6:.1f} GB/s)"
         for name, t in clean.items()))
+    # the ISIC path's shape
+    xi0, xi1, ri = _case_inputs(*ISIC_SHAPE, half, torch.float32, 0)
+    ms_224 = _time_ms(lambda: cutmix_blend(xi0, xi1, ri), flush)
+    plain_224 = _time_ms(lambda: cutmix_blend_plain(xi0, xi1, ri), flush)
+    bound_224, bytes_224, _ = _bound_ms(xi0, ri)
+    note(f"[kernel] ISIC path f32 {ISIC_SHAPE}: kernel {ms_224 * 1e3:.2f} us, bound "
+         f"{bound_224 * 1e3:.2f} us ({bytes_224 / 1e6:.2f} MB at 3.35 TB/s; "
+         f"{bound_224 / ms_224:.1%} of the bound); plain version {plain_224 * 1e3:.2f} us")
     return {"max_abs_err": max_err, "ms": ms["kernel f32"], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "ms_bf16": ms["kernel bf16"],
-            "bound_ms_bf16": bf16_bound_ms, "yardstick_gbps": gbps["torch.add f32"]}
+            "bound_ms_bf16": bf16_bound_ms, "yardstick_gbps": gbps["torch.add f32"],
+            "ms_224": ms_224, "plain_ms_224": plain_224, "bound_ms_224": bound_224}
 
 
-def _tiny_state(device, sd):
-    model = SegModel("tiny", DeepLab2(4, layers=(1, 1, 1, 1)), np.zeros(3), np.ones(3),
-                     (1, 1), _param_label)
+def _tiny_deeplab2():
+    return DeepLab2(4, layers=(1, 1, 1, 1))
+
+
+def _tiny_label(module):
+    return label_params_by_path(module, [("backbone", "pretrained"), ("features", "pretrained")])
+
+
+def _tiny_state(device, sd, make_module=_tiny_deeplab2, mean_teacher=True):
+    label = _param_label if make_module is _tiny_deeplab2 else _tiny_label
+    model = SegModel("tiny", make_module(), np.zeros(3), np.ones(3), (1, 1), label)
     state, opt = create_train_state(model, OptimizerConfig(learning_rate=3e-4), 0,
-                                    device=device, pretrained=False)
-    state.student.load_state_dict(sd)
-    state.teacher.load_state_dict(sd)
+                                    device=device, mean_teacher=mean_teacher, pretrained=False)
+    for net in (state.student, state.teacher):
+        if net is not None:
+            net.load_state_dict(sd)
     return model, state, opt
 
 
-def _tiny_weights(seed):
-    """He-scaled convs (classifier x0.1) and random frozen-BN statistics, so
-    the random model has O(1) logits and its confidence gate is exercised."""
+def _tiny_weights(seed, module=None):
+    """He-scaled convs (classifier x0.1) and random BN statistics, so the
+    random model has O(1) logits and its confidence gate is exercised."""
     rng = np.random.RandomState(seed)
-    sd = DeepLab2(4, layers=(1, 1, 1, 1)).state_dict()
+    sd = (module or _tiny_deeplab2()).state_dict()
     out = {}
     for k, v in sd.items():
         shape = tuple(v.shape)
         if v.dim() == 4:
-            gain = 0.1 if k.startswith("layer5") else 1.0
+            gain = 0.1 if k.startswith("layer5") or "classifier" in k or "final_clf" in k \
+                else 1.0
             val = rng.randn(*shape) * gain * math.sqrt(2.0 / np.prod(shape[1:]))
         elif k.endswith("running_var"):
             val = rng.uniform(0.5, 2.0, shape)
@@ -351,6 +401,64 @@ TINY_ALGOS = {
 }
 
 
+# phase 3: BN running statistics after the first step (its forwards ran on
+# equal weights on both devices), relative to max(1, |value|)
+STATS_RTOL = 1e-4
+
+
+def _check_small_run(name: str, runs: dict, n_px: int, steps: int, lr: float) -> None:
+    """Hold a tiny model's CUDA run against its CPU run: conv sums run in
+    another order on the card, so rtol 1e-4 on the CE; the gate is a mean of
+    0/1 values, so a pixel whose confidence lies within rounding of the
+    threshold may flip: allow two flips; Adam moves a noise-level gradient's
+    element by up to 2 lr per step, so every parameter (student and teacher)
+    is held within that after the last step. The running statistics of a
+    later step come from those diverged weights (several percent apart in a
+    random tiny ResUNet's decoder after two steps), so they are held after
+    the first step, within STATS_RTOL."""
+    one_gate = 1.0 / n_px
+    for i, (mc, mg) in enumerate(zip(runs["cpu"][0], runs["cuda"][0])):
+        note(f"[small] {name} step {i}: cpu {mc} cuda {mg}")
+        ok = (math.isclose(mc["sup_loss"], mg["sup_loss"], rel_tol=1e-4)
+              and abs(mc["conf_rate"] - mg["conf_rate"]) <= 2 * one_gate + 1e-7
+              and math.isclose(mc["cons_loss"], mg["cons_loss"],
+                               rel_tol=1e-4 + 4 * one_gate))
+        if not ok:
+            raise RuntimeError(f"small-model {name} step {i}: GPU and CPU disagree")
+    first, last = ({k: (runs["cpu"][1][i][k], runs["cuda"][1][i][k]) for k in runs["cpu"][1][i]}
+                   for i in (0, -1))
+    worst = max((a - b).abs().max().item() for k, (a, b) in last.items() if "running" not in k)
+    stats = [((a - b).abs() / a.abs().clamp_min(1.0)).max().item()
+             for k, (a, b) in first.items() if "running" in k]
+    worst_stats = max(stats, default=0.0)
+    note(f"[small] {name}: max |param cpu - cuda| after {steps} steps: {worst:.3g} "
+         f"(bound 2*lr*steps = {2 * lr * steps:.3g}); running statistics after step 1: "
+         f"max relative difference {worst_stats:.3g} over {len(stats)} (bound {STATS_RTOL})")
+    if worst > 2 * lr * steps + 1e-6 or worst_stats > STATS_RTOL:
+        raise RuntimeError(f"small-model {name} states diverge between GPU and CPU")
+
+
+def _run_tiny(device, sd, make_module, cfg, make_step, nb, draws, masks=None) -> tuple:
+    """Steps of a tiny model on ``device``: (metrics per step, every tensor
+    of the student's and the teacher's state dicts on the host after each
+    step)."""
+    model, state, opt = _tiny_state(device, sd, make_module, cfg.mean_teacher)
+    step = make_step(model, opt, cfg)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in nb.items()}
+    metrics, tensors = [], []
+    for d in draws:
+        if masks is not None:
+            masks.k = 0
+        kw = {k: torch.from_numpy(v).to(device) for k, v in d.items()}
+        state, m = step(state, batch, 1.0, **kw)
+        metrics.append({k: v.item() for k, v in m.items()})
+        # copies: a CPU state dict's tensors are the ones the next step updates
+        tensors.append({f"{part}.{k}": v.to("cpu", copy=True)
+                        for part, net in (("student", state.student), ("teacher", state.teacher))
+                        if net is not None for k, v in net.state_dict().items()})
+    return metrics, tensors
+
+
 def phase_small_step() -> None:
     """Each algorithm's step on the tiny model, GPU against CPU: f32, TF32
     off, two steps with the same injected draws."""
@@ -358,40 +466,78 @@ def phase_small_step() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     n, h, w, steps, lr = 2, 33, 33, 2, 3e-4
     sd = _tiny_weights(3)
-    one_gate = 1.0 / (n * h * w)
     for algo, (cfg, make_step) in TINY_ALGOS.items():
         rng = np.random.RandomState(0)
         nb = _tiny_batch(algo, n, h, w, rng)
         draws = [_tiny_draws(algo, n, h, w, rng) for _ in range(steps)]
-        runs = {}
-        for device in ("cpu", "cuda"):
-            model, state, opt = _tiny_state(device, sd)
-            step = make_step(model, opt, cfg)
-            batch = {k: torch.from_numpy(v).to(device) for k, v in nb.items()}
-            metrics = []
-            for d in draws:
-                kw = {k: torch.from_numpy(v).to(device) for k, v in d.items()}
-                state, m = step(state, batch, 1.0, **kw)
-                metrics.append({k: v.item() for k, v in m.items()})
-            runs[device] = (metrics, {k: v.cpu() for k, v in state.student.state_dict().items()})
-        for i, (mc, mg) in enumerate(zip(runs["cpu"][0], runs["cuda"][0])):
-            note(f"[small] {algo} step {i}: cpu {mc} cuda {mg}")
-            # conv sums run in another order on the card: rtol 1e-4 on the CE;
-            # the gate is a mean of 0/1 values, so a pixel whose confidence
-            # lies within rounding of the threshold may flip: allow two flips
-            ok = (math.isclose(mc["sup_loss"], mg["sup_loss"], rel_tol=1e-4)
-                  and abs(mc["conf_rate"] - mg["conf_rate"]) <= 2 * one_gate + 1e-7
-                  and math.isclose(mc["cons_loss"], mg["cons_loss"],
-                                   rel_tol=1e-4 + 4 * one_gate))
-            if not ok:
-                raise RuntimeError(f"small-model {algo} step {i}: GPU and CPU disagree")
-        # Adam moves a noise-level gradient's element by up to 2 lr per step
-        worst = max((runs["cpu"][1][k] - runs["cuda"][1][k]).abs().max().item()
-                    for k in runs["cpu"][1])
-        note(f"[small] {algo}: max |param cpu - cuda| after {steps} steps: {worst:.3g} "
-             f"(bound 2*lr*steps = {2 * lr * steps:.3g})")
-        if worst > 2 * lr * steps + 1e-6:
-            raise RuntimeError(f"small-model {algo} params diverge between GPU and CPU")
+        runs = {d: _run_tiny(d, sd, _tiny_deeplab2, cfg, make_step, nb, draws)
+                for d in ("cpu", "cuda")}
+        _check_small_run(algo, runs, n * h * w, steps, lr)
+
+
+TINY = (1, 1, 1, 1)
+# phase 3b: name -> (module, (n, h, w), draws of TINY_ALGOS' algorithm, config,
+# step factory); every batch-statistics BN sees 4 or more values per channel
+TINY_FAMILIES = {
+    "denseunet_cutmix": (lambda: DenseUNet(4, block_config=(2, 2, 2, 2)), (2, 64, 64),
+                         "mask_mt", MaskConsistencyConfig(conf_thresh=0.34, freeze_bn=False),
+                         make_mask_mt_step),
+    "resunet_ict": (lambda: ResUNet(4, layers=TINY), (2, 64, 64), "ict",
+                    ICTConfig(ict_alpha=0.5, conf_thresh=0.34, freeze_bn=False), make_ict_step),
+    "deeplabv3_vat": (lambda: DeepLabV3(4, layers=TINY), (4, 33, 33), "vat_fixed",
+                      VATConfig(vat_radius=0.5, conf_thresh=0.34, freeze_bn=False),
+                      make_vat_step),
+    "deeplabv3plus_aug_mt": (lambda: DeepLabV3Plus(4, layers=TINY), (4, 41, 41), "aug_mt",
+                             AugConsConfig(conf_thresh=0.34, freeze_bn=False),
+                             make_aug_cons_step),
+    "pspnet_cutmix_pi": (lambda: PSPNet(4, layers=TINY), (4, 50, 50), "mask_mt",
+                         MaskConsistencyConfig(conf_thresh=0.34, freeze_bn=False,
+                                               mean_teacher=False), make_mask_mt_step),
+}
+
+
+class _HostMasks:
+    """Dropout keep masks by call order, drawn on the host (call k of a
+    step from seed 500 + k) and copied to the forward's device, so both
+    devices' runs drop the same activations."""
+
+    def __init__(self):
+        self.k = 0
+
+    def draw(self, drop: Dropout, x: torch.Tensor) -> torch.Tensor:
+        n, c, h, w = x.shape
+        keep = np.random.RandomState(500 + self.k).rand(n, h, w, c) < 1.0 - drop.rate
+        self.k += 1
+        return torch.from_numpy(keep).to(x.device).permute(0, 3, 1, 2)
+
+
+def phase_small_step_families() -> None:
+    """The other families at tiny depth, GPU against CPU: f32, TF32 off,
+    training BN, the same dropout masks and draws, two steps."""
+    steps, lr = 2, 3e-4
+    masks = _HostMasks()
+    draw_keep = Dropout.draw_keep
+    Dropout.draw_keep = lambda self, x: masks.draw(self, x)
+    try:
+        for name, (make_module, (n, h, w), algo, cfg, make_step) in TINY_FAMILIES.items():
+            sd = _tiny_weights(4, make_module())
+            rng = np.random.RandomState(0)
+            nb = _tiny_batch(algo, n, h, w, rng)
+            draws = [_tiny_draws(algo, n, h, w, rng) for _ in range(steps)]
+            runs = {d: _run_tiny(d, sd, make_module, cfg, make_step, nb, draws, masks)
+                    for d in ("cpu", "cuda")}
+            if masks.k == 0:
+                raise RuntimeError(f"{name}: no dropout mask was drawn")
+            _check_small_run(name, runs, n * h * w, steps, lr)
+            moved = [k for k, v in runs["cuda"][1][-1].items()
+                     if k.startswith("student.") and "running" in k
+                     and not torch.equal(v, sd[k[len("student."):]])]
+            if not moved:
+                raise RuntimeError(f"{name}: training BN left the running statistics as they were")
+            note(f"[small] {name}: {len(moved)} running statistics of the student moved; "
+                 f"{masks.k} dropout masks per step")
+    finally:
+        Dropout.draw_keep = draw_keep
 
 
 # phase 4b: the Pascal recipe's lines of the other algorithms
@@ -668,19 +814,25 @@ RECIPE_ALGOS = {
 }
 
 
-def _run_trainer(results: str, flags, device, algorithm: str = "mask_mt") -> tuple:
+def _parse_flags(flags, algorithm: str = "mask_mt") -> dict:
+    cmd = experiment if algorithm == "mask_mt" else RECIPE_ALGOS[algorithm][0]
+    params = dict(cmd.make_context("experiment", list(flags)).params)
+    del params["job_desc"]
+    return params
+
+
+def _run_trainer(results: str, flags, device, algorithm: str = "mask_mt",
+                 desc: str = "run") -> tuple:
     """Parse ``flags`` with the port's click command of ``algorithm``, then
     run its trainer through job.submit: (engine, kernel launches in the run,
     log text)."""
-    cmd, fn = ((experiment, train_seg_semisup_mask_mt) if algorithm == "mask_mt"
-               else RECIPE_ALGOS[algorithm][:2])
-    params = dict(cmd.make_context("experiment", list(flags)).params)
-    del params["job_desc"]
+    fn = train_seg_semisup_mask_mt if algorithm == "mask_mt" else RECIPE_ALGOS[algorithm][1]
+    params = _parse_flags(flags, algorithm)
     build.launch_counts.clear()
-    engine = job.submit(f"chip_smoke_{algorithm}", "run", fn,
+    engine = job.submit(f"chip_smoke_{algorithm}", desc, fn,
                         dict(params, device=device), results_root=results)
     launches = build.launch_counts.get(KERNEL, 0)
-    with open(os.path.join(engine.ctx.run_dir, "log_run.txt")) as f:
+    with open(os.path.join(engine.ctx.run_dir, f"log_{desc}.txt")) as f:
         return engine, launches, f.read()
 
 
@@ -823,6 +975,224 @@ def phase_trainers_algos(voc_root: str, step_ms: dict, device=None) -> dict:
     return out
 
 
+# the ISIC-2017 recipe (run_isic2017_experiments.sh): DenseUNet-161, training
+# BN and dropout, SGD 0.1 poly with weight decay 5e-4, 224^2 crops, fill-holes
+# eval; its seven lines: name -> (algorithm, the line's flags)
+ISIC_COMMON = [
+    "--dataset=isic2017", "--arch=densenet161unet_imagenet", "--batch_size=10",
+    "--iters_per_epoch=400", "--num_epochs=100", "--opt_type=sgd", "--learning_rate=0.1",
+    "--sgd_weight_decay=5e-4", "--lr_sched=poly", "--bin_fill_holes", "--crop_size=224,224",
+    "--aug_hflip", "--aug_vflip", "--aug_hvflip", "--aug_max_scale=1.1", "--aug_rot_mag=45.0",
+    "--aug_strong_colour",
+]
+ISIC_LINES = {
+    "sup_50": ("aug_mt", ["--n_sup=50", "--cons_weight=0.0"]),
+    "sup_all": ("aug_mt", ["--n_sup=-1", "--cons_weight=0.0"]),
+    "cutmix": ("mask_mt", ["--n_sup=50", "--cons_weight=1.0", "--mask_mode=mix",
+                           "--mask_prop_range=0.5", "--conf_thresh=0.97"]),
+    "cutout": ("mask_mt", ["--n_sup=50", "--cons_weight=1.0", "--mask_mode=zero",
+                           "--mask_prop_range=0.0:1.0", "--conf_thresh=0.97"]),
+    "aug": ("aug_mt", ["--n_sup=50", "--cons_weight=0.1", "--conf_thresh=0.97"]),
+    "ict": ("ict", ["--n_sup=50", "--cons_weight=0.0003", "--ict_alpha=0.1",
+                    "--conf_thresh=0.97"]),
+    "vat": ("vat_mt", ["--n_sup=50", "--adaptive_vat_radius", "--vat_radius=1.0",
+                       "--cons_weight=0.001", "--conf_thresh=0.97"]),
+}
+# the Pascal DeepLab v3+ recipe's CutMix line
+# (run_pascal_aug_deeplab3plus_experiments.sh), but for --dataset=pascal_aug
+# and its --split_path: the synthetic tree is a plain VOC tree
+V3PLUS_CUTMIX = [
+    "--dataset=pascal", "--arch=resnet101_deeplabv3plus_imagenet", "--freeze_bn",
+    "--batch_size=10", "--learning_rate=1e-5", "--iters_per_epoch=1000", "--num_epochs=40",
+    "--crop_size=321,321", "--aug_hflip", "--aug_scale_hung", "--aug_strong_colour",
+    "--n_sup=100", "--cons_weight=1.0", "--mask_mode=mix", "--mask_prop_range=0.5",
+    "--conf_thresh=0.97",
+]
+# phase 4c: name -> (flags, classes)
+RECIPE_STEPS = {
+    "densenet161unet ISIC": (ISIC_COMMON + ISIC_LINES["cutmix"][1], 2),
+    "deeplabv3plus Pascal": (V3PLUS_CUTMIX, NUM_CLASSES),
+}
+# phase 6c: the synthetic ISIC zip (248^2, the converter's size) and the runs
+ISIC_TRAIN, ISIC_VAL, ISIC_ITERS, V3PLUS_ITERS = 60, 10, 4, 5
+
+
+def _running_stats(net: torch.nn.Module) -> dict:
+    return {k: v.detach().clone() for k, v in net.named_buffers() if "running" in k}
+
+
+def make_recipe_step(name: str):
+    """A recipe's CutMix line (``RECIPE_STEPS``) as a bare step at full
+    width, built as the trainer builds it (its flags, ``build_spec``,
+    ``build_model``, the optimiser of its schedule), on random batches made
+    on the card: (state, step, batch, parsed flags, step config)."""
+    flags, classes = RECIPE_STEPS[name]
+    p = _parse_flags(flags)
+    spec, cfg = build_spec(p)
+    model = common.build_model(p["arch"], classes, p["compute_dtype"])
+    total = p["iters_per_epoch"] * p["num_epochs"]
+    opt_cfg = common.build_optimizer_config(
+        p["opt_type"], p["learning_rate"], p["lr_sched"], p["lr_step_epochs"],
+        p["lr_step_gamma"], p["lr_poly_power"], total, p["iters_per_epoch"],
+        p["sgd_momentum"], p["sgd_nesterov"], p["sgd_weight_decay"])
+    torch.backends.cudnn.benchmark = True
+    state, opt = create_train_state(model, opt_cfg, 0, mean_teacher=cfg.mean_teacher,
+                                    pretrained=False)
+    step = spec.make_step(model, opt)
+    crop = common.parse_crop_size(p["crop_size"])
+    shape = (BATCH, *crop, 3)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ones = torch.ones(shape[:3] + (1,), device="cuda")
+    batch = {"sup_x": torch.randn(shape, generator=gen, device="cuda"),
+             "sup_y": torch.randint(0, classes, shape[:3], generator=gen, device="cuda"),
+             "um0": ones, "um1": ones}
+    for k in ("ux0", "ux1"):
+        batch[f"{k}_tea"] = batch[f"{k}_stu"] = torch.randn(shape, generator=gen, device="cuda")
+    return state, step, batch, p, cfg
+
+
+def phase_recipe_step(name: str) -> dict:
+    """``make_recipe_step(name)``: 3 warm-up and 10 timed steps."""
+    state, step, batch, p, cfg = make_recipe_step(name)
+    classes = RECIPE_STEPS[name][1]
+    crop = tuple(batch["sup_x"].shape[1:3])
+    n_params = sum(t.numel() for t in state.student.parameters())
+    stats0 = _running_stats(state.student)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    build.launch_counts.clear()
+    t0 = time.perf_counter()
+    for _ in range(WARMUP):
+        state, m = step(state, batch, 1.0)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    timed = []
+    t0 = time.perf_counter()
+    for _ in range(ITERS):
+        state, m = step(state, batch, 1.0)
+        timed.append(m)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+
+    for m in timed:
+        if sorted(m) != ["conf_rate", "cons_loss", "sup_loss"] or not all(
+                math.isfinite(v.item()) for v in m.values()):
+            raise RuntimeError(f"{name}: non-finite or missing metrics {m}")
+    if launches.get(KERNEL, 0) != WARMUP + ITERS:
+        raise RuntimeError(f"{name}: expected {WARMUP + ITERS} {KERNEL} launches, got {launches}")
+    stats = _running_stats(state.student)
+    moved = sum(not torch.equal(v, stats0[k]) for k, v in stats.items())
+    finite = all(bool(torch.isfinite(v).all()) for v in stats.values())
+    if not finite or moved != (0 if cfg.freeze_bn else len(stats)):
+        raise RuntimeError(f"{name}: {moved} of {len(stats)} running statistics moved "
+                           f"(finite: {finite}) with freeze_bn={cfg.freeze_bn}")
+    with torch.no_grad(), eval_mode(state.teacher):
+        logits = state.teacher(batch["sup_x"][:2])
+    if logits.shape != (2, *crop, classes) or not bool(torch.isfinite(logits).all()):
+        raise RuntimeError(f"{name}: teacher logits {tuple(logits.shape)} not finite/expected")
+    result = {"ms_per_step": dt / ITERS * 1e3, "img_per_s": BATCH * ITERS / dt,
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "warmup_s": warm_s,
+              "launches": launches.get(KERNEL, 0), "params": n_params,
+              "stats_moved": moved, "stats": len(stats),
+              "last": {k: v.item() for k, v in timed[-1].items()}}
+    note(f"[recipe step] {name}: {p['arch']} {p['compute_dtype']} bs {BATCH}+{BATCH}+{BATCH} "
+         f"{crop[0]}^2, freeze_bn={cfg.freeze_bn}, {p['opt_type']} {p['learning_rate']} "
+         f"{p['lr_sched']} ({n_params} params): {result['ms_per_step']:.2f} ms/step, "
+         f"{result['img_per_s']:.2f} img/s, peak {result['peak_mem_gib']:.2f} GiB, warm-up "
+         f"{warm_s:.1f} s, {result['launches']} {KERNEL} launches, running statistics moved "
+         f"{moved}/{len(stats)} and finite, last metrics {result['last']}")
+    return result
+
+
+def _trainer_record(engine, iters: int) -> dict:
+    """The timing and VAL mIoU of a run's last epoch (its JSONL record)."""
+    with open(engine.ctx.metrics_path) as f:
+        rec = json.loads(f.readlines()[-1])
+    return {"ms_per_iter": rec["train_time"] / iters * 1e3,
+            "img_per_s": iters * BATCH / rec["train_time"], "val_miou": rec["val_miou"],
+            "epoch_s": rec["epoch_time"], "eval_s": rec["eval_time"]}
+
+
+def phase_isic_trainers(tmp: str, voc_root: str) -> dict:
+    """The ISIC recipe's seven lines at full width on a synthetic ISIC zip,
+    one epoch of ISIC_ITERS iterations each; the CutMix line's checkpoint
+    restored bit for bit and resumed for a second epoch; then the v3+
+    CutMix line on the synthetic VOC tree."""
+    zip_path = write_isic_zip(os.path.join(tmp, "isic2017.zip"), ISIC_TRAIN, ISIC_VAL, seed=0)
+    os.environ["CUTMIX_SEG_CONFIG"] = write_config(os.path.join(tmp, "seg_isic.cfg"),
+                                                   voc_root, zip_path)
+    settings._config = None  # read the new cfg
+    results = os.path.join(tmp, "results_isic")
+    cuts = ["--no_pretrained", f"--iters_per_epoch={ISIC_ITERS}", "--num_epochs=1"]
+    out = {}
+    for name, (algo, line) in ISIC_LINES.items():
+        flags = ISIC_COMMON + line + cuts
+        engine, launches, log = _run_trainer(results, flags, None, algo, desc=name)
+        losses = _epoch_line(log, 1)
+        ckpts = sorted(os.listdir(engine.ctx.checkpoint_dir))
+        want = ISIC_ITERS if name == "cutmix" else 0
+        if ckpts != [f"ckpt_{ISIC_ITERS:09d}.pt"] or launches != want:
+            raise RuntimeError(f"ISIC {name}: checkpoints {ckpts}, {launches} {KERNEL} "
+                               f"launches (expected {want})")
+        if engine.p["freeze_bn"] or not engine.p["bin_fill_holes"]:
+            raise RuntimeError(f"ISIC {name}: not the recipe's training BN / fill-holes eval")
+        for part, net in (("student", engine.state.student), ("teacher", engine.state.teacher)):
+            var = [v for k, v in _running_stats(net).items() if k.endswith("running_var")]
+            if not all(bool(torch.isfinite(v).all()) and not bool((v == 1).all()) for v in var):
+                raise RuntimeError(f"ISIC {name}: a {part} BN's running variance did not move "
+                                   "or is not finite")
+        out[name] = dict(_trainer_record(engine, ISIC_ITERS), launches=launches, losses=losses)
+        note(f"[trainer isic] {name} ({algo}: {' '.join(line)}): epoch 1 {losses}, VAL mIoU "
+             f"{out[name]['val_miou']:.4f} (fill-holes eval); {out[name]['ms_per_iter']:.2f} "
+             f"ms/iteration ({out[name]['img_per_s']:.2f} img/s, the epoch's first iteration "
+             f"included), epoch {out[name]['epoch_s']:.2f} s of which eval "
+             f"{out[name]['eval_s']:.2f} s; {launches} {KERNEL} launches; the running "
+             "statistics of student and teacher moved")
+        if name == "cutmix":
+            saved = checkpoint.state_to_host(engine.state)
+            model2 = common.build_model(engine.p["arch"], engine.n_classes,
+                                        engine.p["compute_dtype"])
+            state2, _ = create_train_state(model2, OptimizerConfig(opt_type="sgd"), 1,
+                                           pretrained=False)
+            latest = checkpoint.latest_checkpoint(engine.ctx.checkpoint_dir)
+            restored = checkpoint.state_to_host(checkpoint.restore_checkpoint(latest, state2))
+            if not _states_equal(saved, restored):
+                raise RuntimeError(f"ISIC cutmix: the state restored from {latest} differs")
+            del model2, state2, restored
+            engine2, launches2, log2 = _run_trainer(
+                results, flags + ["--num_epochs=2", "--resume"], None, algo, desc=name)
+            if engine2.start_epoch != 1 or "Resumed from" not in log2 \
+                    or engine2.state.step != 2 * ISIC_ITERS or launches2 != ISIC_ITERS:
+                raise RuntimeError(f"ISIC cutmix --resume: started at epoch "
+                                   f"{engine2.start_epoch + 1}, ended at step "
+                                   f"{engine2.state.step}, {launches2} launches")
+            out["cutmix_resume"] = {"launches": launches2, "losses": _epoch_line(log2, 2)}
+            note(f"[trainer isic] cutmix: the checkpoint restores the saved state bit for bit "
+                 f"(BN running statistics and generator included); --resume started at epoch "
+                 f"2, epoch line {out['cutmix_resume']['losses']}, {launches2} {KERNEL} launches")
+            del engine2
+        del engine
+        torch.cuda.empty_cache()
+
+    flags = V3PLUS_CUTMIX + ["--n_sup=20", "--no_pretrained",
+                             f"--iters_per_epoch={V3PLUS_ITERS}", "--num_epochs=1"]
+    engine, launches, log = _run_trainer(results, flags, None, "mask_mt", desc="v3plus_cutmix")
+    losses = _epoch_line(log, 1)
+    if launches != V3PLUS_ITERS:
+        raise RuntimeError(f"v3+ cutmix: expected {V3PLUS_ITERS} {KERNEL} launches, got {launches}")
+    out["v3plus_cutmix"] = dict(_trainer_record(engine, V3PLUS_ITERS), launches=launches,
+                                losses=losses)
+    note(f"[trainer v3+] Pascal v3+ CutMix line on the synthetic VOC tree: epoch 1 {losses}, "
+         f"VAL mIoU {out['v3plus_cutmix']['val_miou']:.4f}; "
+         f"{out['v3plus_cutmix']['ms_per_iter']:.2f} ms/iteration; {launches} {KERNEL} launches")
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU",
@@ -832,6 +1202,7 @@ def main() -> int:
     phase_build()
     k = phase_kernel_vs_plain()
     phase_small_step()
+    phase_small_step_families()
     full = phase_full_step()
     full_algos = {}
     for algo in FULL_ALGOS:
@@ -841,12 +1212,18 @@ def main() -> int:
         f"{a} {r['ms_per_step']:.2f} ms/step ({r['img_per_s']:.2f} img/s, peak "
         f"{r['peak_mem_gib']:.2f} GiB)"
         for a, r in [("mask_mt", full)] + list(full_algos.items())))
+    recipe_steps = {}
+    for name in RECIPE_STEPS:
+        torch.cuda.empty_cache()
+        recipe_steps[name] = phase_recipe_step(name)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         voc_root = write_voc_tree(os.path.join(tmp, "VOC2012"), VOC_TRAIN, VOC_VAL, seed=0)
         phase_augment_eval(voc_root)
         trainer = phase_trainer(voc_root, full["ms_per_step"])
         trainers = phase_trainers_algos(
             voc_root, {a: r["ms_per_step"] for a, r in full_algos.items()})
+        isic = phase_isic_trainers(tmp, voc_root)
     kernels = [{
         "name": KERNEL, "route": "cuda",
         "source": "cutmix_seg_tpu_torch/csrc/cutmix_blend.cu",
@@ -858,12 +1235,19 @@ def main() -> int:
                              **{f"step {a} (phase 4b)": r["launches"].get(KERNEL, 0)
                                 for a, r in full_algos.items()},
                              **{f"trainer {a} (phase 6b)": r["launches"]
-                                for a, r in trainers.items()}},
+                                for a, r in trainers.items()},
+                             **{f"step {n} (phase 4c)": r["launches"]
+                                for n, r in recipe_steps.items()},
+                             **{f"trainer ISIC {n} (phase 6c)": r["launches"]
+                                for n, r in isic.items() if n != "v3plus_cutmix"},
+                             "trainer v3+ cutmix (phase 6c)": isic["v3plus_cutmix"]["launches"]},
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
         "kernel_us": k["ms"] * 1e3, "plain_us": k["plain_ms"] * 1e3,
         "bound_us": k["bound_ms"] * 1e3, "ms_bf16": k["ms_bf16"],
         "bound_ms_bf16": k["bound_ms_bf16"], "yardstick_gbps": k["yardstick_gbps"],
+        "ms_224": k["ms_224"], "plain_ms_224": k["plain_ms_224"],
+        "bound_ms_224": k["bound_ms_224"],
     }]
     note(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

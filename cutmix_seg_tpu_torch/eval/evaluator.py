@@ -10,6 +10,7 @@ import torch
 from torch import nn
 
 from cutmix_seg_tpu_torch.aug.device import normalise
+from cutmix_seg_tpu_torch.models.common import eval_mode
 from cutmix_seg_tpu_torch.ops.iou import confusion_matrix
 
 
@@ -36,9 +37,11 @@ def normalise_eval_batch(batch, mean, std):
 
 @torch.no_grad()
 def predict(net: nn.Module, batch, mean, std):
-    """(pred (N, H, W) int64, y (N, H, W) int64) of a raw eval batch."""
+    """(pred (N, H, W) int64, y (N, H, W) int64) of a raw eval batch, the
+    net in eval mode (running-average BN, no dropout)."""
     x, y, _ = normalise_eval_batch(batch, mean, std)
-    return net(x).argmax(dim=-1), y
+    with eval_mode(net):
+        return net(x).argmax(dim=-1), y
 
 
 def eval_confusion(net: nn.Module, batch, num_classes: int, mean, std,

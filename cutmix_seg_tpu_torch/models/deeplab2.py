@@ -43,7 +43,7 @@ class ASPPSum(nn.Module):
                  branches_used: int = 2):
         super().__init__()
         self.conv2d_list = nn.ModuleList(
-            Conv2d(inplanes, num_classes, 3, padding=d, dilation=d, bias=True)
+            Conv2d(inplanes, num_classes, 3, padding=d, dilation=d, bias=True, init="normal")
             for d in dilations)
         self.branches_used = branches_used
 

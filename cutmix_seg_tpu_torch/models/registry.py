@@ -1,28 +1,27 @@
 """Architecture registry: name -> SegModel factory (port of
-cutmix_seg_tpu.models.registry), so ``--arch`` values carry over unchanged.
-
-The port has the three DeepLab v2 names so far. The JAX package's other
-names raise with the list of names still to port.
+cutmix_seg_tpu.models.registry), so ``--arch`` values carry over unchanged:
+the JAX package's 11 names.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict
 
-from cutmix_seg_tpu_torch.models import deeplab2
+from cutmix_seg_tpu_torch.models import deeplab2, deeplab3, denseunet, pspnet, resunet
 
 _ARCHS: Dict[str, Callable] = {
     "resnet101_deeplab_imagenet": deeplab2.resnet101_deeplab_imagenet,
     "resnet101_deeplab_imagenet_mittal_std": deeplab2.resnet101_deeplab_imagenet_mittal_std,
     "resnet101_deeplab_coco": deeplab2.resnet101_deeplab_coco,
+    "resnet50unet_imagenet": resunet.resnet50unet_imagenet,
+    "resnet101unet_imagenet": resunet.resnet101unet_imagenet,
+    "densenet161unet": denseunet.densenet161unet,
+    "densenet161unet_imagenet": denseunet.densenet161unet_imagenet,
+    "resnet101_deeplabv3_imagenet": deeplab3.resnet101_deeplabv3_imagenet,
+    "resnet101_deeplabv3_coco": deeplab3.resnet101_deeplabv3_coco,
+    "resnet101_deeplabv3plus_imagenet": deeplab3.resnet101_deeplabv3plus_imagenet,
+    "resnet101_pspnet_imagenet": pspnet.resnet101_pspnet_imagenet,
 }
-
-# the JAX package's other architectures (ROADMAP A5)
-NOT_PORTED = (
-    "densenet161unet", "densenet161unet_imagenet", "resnet101_deeplabv3_coco",
-    "resnet101_deeplabv3_imagenet", "resnet101_deeplabv3plus_imagenet",
-    "resnet101_pspnet_imagenet", "resnet101unet_imagenet", "resnet50unet_imagenet",
-)
 
 
 def register(name: str):
@@ -35,9 +34,7 @@ def register(name: str):
 
 def get(name: str) -> Callable:
     if name not in _ARCHS:
-        raise KeyError(
-            f"architecture {name!r} is not in the port: it has {sorted(_ARCHS)}; "
-            f"still to port (ROADMAP A5): {list(NOT_PORTED)}")
+        raise KeyError(f"unknown architecture {name!r}; available: {sorted(_ARCHS)}")
     return _ARCHS[name]
 
 

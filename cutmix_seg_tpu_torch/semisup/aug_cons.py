@@ -1,15 +1,17 @@
 """Augmentation-driven consistency step, aug_mt (port of
-cutmix_seg_tpu.semisup.aug_cons, grad_accum == 1, frozen BN).
+cutmix_seg_tpu.semisup.aug_cons, grad_accum == 1).
 
 The two elements of each unsupervised pair are two crops of one image with
 different geometry. One step, in the JAX step's order:
-  1. a no-grad teacher forward on element 0 (``ux0``), in float32;
+  1. a no-grad train-mode teacher forward on element 0 (``ux0``), in
+     float32;
   2. its logits, its probabilities and element 0's valid mask warped into
      element 1's frame with the pair's relative transform ``xf0_to_1`` (grid
      space, align_corners=True, zeros outside: ``ops.resample``);
   3. loss mask = warped um0 * um1; the confidence is the max of the warped
      probabilities;
-  4. one student forward/backward over ``[sup_x | ux1]``: CE(ignore) +
+  4. the student forward/backward over ``[sup_x | ux1]`` (two forwards with
+     training BN): CE(ignore) +
      cons_sum * ramp * cons_weight; prob-space losses take the warped
      probabilities as targets, logit-space losses the warped logits;
   5. the optimiser step, then the EMA teacher update.
@@ -33,8 +35,10 @@ from cutmix_seg_tpu_torch.semisup.stepcore import (
     ConsistencyCommon,
     confidence_px,
     finish_step,
+    prepare_nets,
     refuse_unported,
     student_backward,
+    teacher_forward,
 )
 
 __all__ = ["AugConsConfig", "make_aug_cons_step"]
@@ -59,15 +63,14 @@ def make_aug_cons_step(model, opt, cfg: AugConsConfig):
     use_cons = cfg.cons_weight > 0.0
 
     def step(state: TrainState, batch, ramp):
-        student = state.student
-        teacher = state.teacher if cfg.mean_teacher else student
+        teacher = prepare_nets(cfg, state)
         x1 = loss_mask = conf_px = per_px_fn = None
         if use_cons:
             x1 = batch["ux1"]
             hw = tuple(x1.shape[1:3])
+            logits_tea = teacher_forward(cfg, teacher, batch["ux0"]).float()
             with torch.no_grad():
                 theta = batch["xf0_to_1"].float()
-                logits_tea = teacher(batch["ux0"]).float()
                 prob_tea = F.softmax(logits_tea, dim=-1)
                 logits_tea_in_stu = grid_sample_affine(logits_tea, theta, hw)
                 prob_tea_in_stu = grid_sample_affine(prob_tea, theta, hw)
@@ -79,7 +82,7 @@ def make_aug_cons_step(model, opt, cfg: AugConsConfig):
                 return L.consistency_from_prob_targets(
                     cfg.cons_loss_fn, logits_stu.float(), logits_tea_in_stu, prob_tea_in_stu)
 
-        metrics = student_backward(cfg, student, batch, x1, per_px_fn, loss_mask,
+        metrics = student_backward(cfg, state.student, batch, x1, per_px_fn, loss_mask,
                                    conf_px, ramp)
         return finish_step(state, opt, cfg), metrics
 

@@ -1,18 +1,20 @@
 """ICT (Interpolation Consistency Training) mean-teacher step (port of
-cutmix_seg_tpu.semisup.ict, grad_accum == 1, frozen BN).
+cutmix_seg_tpu.semisup.ict, grad_accum == 1).
 
 One step, in the JAX step's order:
   1. a per-sample mix factor lambda ~ Beta(ict_alpha, ict_alpha), drawn on
      the device from the state's generator (or injected by the caller);
   2. the student images and the valid masks of the two unsupervised batches
      blended with lambda;
-  3. one no-grad teacher forward over ``[ux0_tea | ux1_tea]``, in float32
-     from there on;
+  3. the no-grad teacher forwards (``stepcore.teacher_pair``: one over
+     ``[ux0_tea | ux1_tea]`` under frozen BN, two in turn with training BN),
+     in float32 from there on;
   4. the teacher's logits, its probabilities and its two per-pixel
      confidences blended with the same lambda, each separately (blended
      probabilities are not the softmax of blended logits: prob-space losses
      take the former, logit-space losses the latter);
-  5. one student forward/backward over ``[sup_x | x_mixed]``: CE(ignore) +
+  5. the student forward/backward over ``[sup_x | x_mixed]`` (two forwards
+     with training BN): CE(ignore) +
      cons_sum * ramp * cons_weight;
   6. the optimiser step, then the EMA teacher update.
 """
@@ -31,8 +33,10 @@ from cutmix_seg_tpu_torch.semisup.stepcore import (
     ConsistencyCommon,
     confidence_px,
     finish_step,
+    prepare_nets,
     refuse_unported,
     student_backward,
+    teacher_pair,
 )
 
 __all__ = ["ICTConfig", "beta_logit", "make_ict_step", "sample_beta"]
@@ -82,8 +86,7 @@ def make_ict_step(model, opt, cfg: ICTConfig):
     use_cons = cfg.cons_weight > 0.0
 
     def step(state: TrainState, batch, ramp, lam: Optional[torch.Tensor] = None):
-        student = state.student
-        teacher = state.teacher if cfg.mean_teacher else student
+        teacher = prepare_nets(cfg, state)
         x_mixed = um_mixed = conf_px = per_px_fn = None
         if use_cons:
             with torch.no_grad():
@@ -95,8 +98,8 @@ def make_ict_step(model, opt, cfg: ICTConfig):
                 x_mixed = ux0 * (1.0 - lam) + ux1 * lam
                 um_mixed = (batch["um0"] * (1.0 - lam) + batch["um1"] * lam).float()
 
-                tea_both = teacher(torch.cat([batch["ux0_tea"], batch["ux1_tea"]])).float()
-                tea0, tea1 = tea_both[:n], tea_both[n:]
+                tea0, tea1 = (t.float() for t in teacher_pair(
+                    cfg, teacher, batch["ux0_tea"], batch["ux1_tea"]))
                 p0, p1 = F.softmax(tea0, dim=-1), F.softmax(tea1, dim=-1)
                 lam32 = lam.float()
                 logits_tea_mix = tea0 * (1 - lam32) + tea1 * lam32
@@ -109,7 +112,7 @@ def make_ict_step(model, opt, cfg: ICTConfig):
                 return L.consistency_from_prob_targets(
                     cfg.cons_loss_fn, logits_stu.float(), logits_tea_mix, prob_tea_mix)
 
-        metrics = student_backward(cfg, student, batch, x_mixed, per_px_fn, um_mixed,
+        metrics = student_backward(cfg, state.student, batch, x_mixed, per_px_fn, um_mixed,
                                    conf_px, ramp)
         return finish_step(state, opt, cfg), metrics
 

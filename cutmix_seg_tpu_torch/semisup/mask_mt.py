@@ -1,5 +1,5 @@
 """CutMix / Cutout mean-teacher train step (port of
-cutmix_seg_tpu.semisup.mask_mt, grad_accum == 1, frozen BN).
+cutmix_seg_tpu.semisup.mask_mt, grad_accum == 1).
 
 One step, in the JAX step's order:
   1. box rects sampled on the device from the state's generator (or
@@ -7,10 +7,12 @@ One step, in the JAX step's order:
   2. 'mix': the CUDA CutMix kernel rasterises the masks and blends the two
      unsupervised batches; 'zero': ``rasterise_masks`` and the Cutout product;
      the loss mask is ``um0 * (1 - m) + um1 * m`` ('zero': ``m * um``);
-  3. one no-grad teacher forward over ``[ux0_tea | ux1_tea]``;
+  3. the no-grad teacher forwards: one over ``[ux0_tea | ux1_tea]`` under
+     frozen BN, two in turn with training BN (``stepcore.teacher_pair``);
   4. the teacher-logit blend with the same mask, in ``cons_compute_dtype``;
   5. the softmax-max confidence in ``loss_softmax_dtype`` and the gate;
-  6. one student forward/backward over ``[sup_x | x_mix]``;
+  6. the student forward/backward over ``[sup_x | x_mix]`` (two forwards
+     with training BN);
   7. loss = CE(ignore) + cons_sum * ramp * cons_weight;
   8. the optimiser step, then the EMA teacher update.
 
@@ -37,7 +39,11 @@ from cutmix_seg_tpu_torch.semisup.stepcore import (
     ConsistencyCommon,
     confidence_px,
     finish_step,
-    masked_consistency,
+    prepare_nets,
+    refuse_unported,
+    student_backward,
+    teacher_forward,
+    teacher_pair,
 )
 
 __all__ = ["MaskConsistencyConfig", "make_mask_mt_step"]
@@ -97,13 +103,7 @@ def make_mask_mt_step(model, opt, cfg: MaskConsistencyConfig):
     Returns ``step(state, batch, ramp, rects=None) -> (state, metrics)``;
     ``rects`` (N, n_boxes, 4) float32 replaces the sampled boxes.
     """
-    if cfg.grad_accum > 1:
-        raise NotImplementedError("grad_accum > 1 is not ported yet")
-    if not cfg.freeze_bn:
-        # flax updates BN running variance with the biased batch variance,
-        # torch's batch_norm with the unbiased one: training BN needs its own
-        # parity work
-        raise NotImplementedError("training BN (freeze_bn=False) is not ported yet")
+    refuse_unported(cfg)
     if cfg.mask_mode not in ("mix", "zero"):
         raise ValueError(f"unknown mask_mode {cfg.mask_mode!r}")
     use_cons = cfg.cons_weight > 0.0
@@ -111,9 +111,8 @@ def make_mask_mt_step(model, opt, cfg: MaskConsistencyConfig):
     sdt = _DTYPES[cfg.loss_softmax_dtype]
 
     def step(state: TrainState, batch, ramp, rects=None):
-        student = state.student
-        teacher = state.teacher if cfg.mean_teacher else student
-        metrics = {}
+        teacher = prepare_nets(cfg, state)
+        x_stu_cons = loss_mask = conf_px = per_px_fn = None
 
         # ---- mixing geometry + teacher: all outside the gradient ----
         if use_cons:
@@ -121,43 +120,26 @@ def make_mask_mt_step(model, opt, cfg: MaskConsistencyConfig):
                 x_stu_cons, m, loss_mask = _mix_geometry(
                     cfg, batch, state.generator, rects)
                 if cfg.mask_mode == "mix":
-                    n = batch["ux0_tea"].shape[0]
-                    tea_both = teacher(torch.cat([batch["ux0_tea"], batch["ux1_tea"]]))
-                    tea0, tea1 = tea_both[:n], tea_both[n:]
+                    tea0, tea1 = teacher_pair(cfg, teacher, batch["ux0_tea"], batch["ux1_tea"])
                     m_l = m.to(ldt)
                     logits_tea = tea0.to(ldt) * (1.0 - m_l) + tea1.to(ldt) * m_l
                 else:
-                    logits_tea = teacher(batch["ux_tea"]).to(ldt)
+                    logits_tea = teacher_forward(cfg, teacher, batch["ux_tea"]).to(ldt)
                 # only the (.., 1) max-prob map is kept; the gate compares f32
                 conf = F.softmax(logits_tea.to(sdt), dim=-1).amax(
                     dim=-1, keepdim=True).float()
                 conf_px = confidence_px(cfg, conf)
                 loss_mask = loss_mask.float()
 
+            def per_px_fn(logits_stu):
+                return _tail(cfg, L.consistency_loss_per_pixel, cfg.cons_loss_fn,
+                             logits_stu, logits_tea, sdt)
+
         # ---- student losses under the gradient ----
-        sup_x = batch["sup_x"]
-        logits_stu = None
-        if use_cons and sup_x.shape[1:] == x_stu_cons.shape[1:]:
-            # one forward/backward over [sup | cons] (frozen BN: same math)
-            logits_all = student(torch.cat([sup_x, x_stu_cons]))
-            logits_sup, logits_stu = logits_all[:sup_x.shape[0]], logits_all[sup_x.shape[0]:]
-        else:
-            logits_sup = student(sup_x)
-        sup_loss = _tail(cfg, L.cross_entropy_ignore, logits_sup, batch["sup_y"],
-                         cfg.ignore_value, sdt)
-        metrics["sup_loss"] = sup_loss.detach()
-        total = sup_loss
-        if use_cons:
-            if logits_stu is None:
-                logits_stu = student(x_stu_cons)
-            per_px = _tail(cfg, L.consistency_loss_per_pixel, cfg.cons_loss_fn,
-                           logits_stu, logits_tea, sdt)
-            loss_sum, loss_mean, conf_rate = masked_consistency(
-                cfg, per_px, loss_mask, conf_px)
-            total = total + loss_sum * ramp * cfg.cons_weight
-            metrics["cons_loss"] = loss_mean.detach()
-            metrics["conf_rate"] = conf_rate.detach()
-        total.backward()
+        metrics = student_backward(
+            cfg, state.student, batch, x_stu_cons, per_px_fn, loss_mask, conf_px, ramp,
+            sup_loss_fn=lambda logits, y: _tail(cfg, L.cross_entropy_ignore, logits, y,
+                                                cfg.ignore_value, sdt))
         return finish_step(state, opt, cfg), metrics
 
     return step

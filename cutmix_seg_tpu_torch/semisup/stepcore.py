@@ -1,8 +1,17 @@
 """Pieces shared by the semi-supervised train steps (port of
 cutmix_seg_tpu.semisup.stepcore): the common options, confidence gating, the
-masked per-sub-batch consistency reduction, the student's forward/backward
-and the end of a step (optimiser update, EMA teacher update, step
-advance)."""
+masked per-sub-batch consistency reduction, the nets' mode for a step, the
+teacher's forwards, the student's forward/backward and the end of a step
+(optimiser update, EMA teacher update, step advance).
+
+BN and dropout follow the JAX steps: every forward but VAT's direction net
+runs in train mode, so dropout draws masks (from the state's generator) in
+the teacher too; with training BN (``freeze_bn=False``) each forward
+normalises with its batch's statistics and updates the running ones, one
+forward after the other, and the EMA then mixes the teacher's updated
+running statistics with the student's. The pi-model's teacher pass is the
+student's own forward, whose updated statistics the JAX step discards.
+"""
 
 from __future__ import annotations
 
@@ -12,6 +21,11 @@ from typing import Callable, Optional
 import torch
 
 from cutmix_seg_tpu_torch.core.train_state import Optimizer, TrainState
+from cutmix_seg_tpu_torch.models.common import (
+    running_stats_kept,
+    set_dropout_generator,
+    set_freeze_bn,
+)
 from cutmix_seg_tpu_torch.semisup import losses as L
 from cutmix_seg_tpu_torch.semisup.ema import ema_update, float_tensors
 
@@ -67,35 +81,68 @@ def confidence_px(cfg: ConsistencyCommon, conf_tea: torch.Tensor):
 def refuse_unported(cfg: ConsistencyCommon) -> None:
     """Raise for the step options the port does not run yet."""
     if cfg.grad_accum > 1:
-        raise NotImplementedError("grad_accum > 1 is not ported yet")
-    if not cfg.freeze_bn:
-        # flax updates BN running variance with the biased batch variance,
-        # torch's batch_norm with the unbiased one: training BN needs its own
-        # parity work
-        raise NotImplementedError("training BN (freeze_bn=False) is not ported yet")
+        raise NotImplementedError("grad_accum > 1 is not ported yet (ROADMAP A2)")
+
+
+def prepare_nets(cfg: ConsistencyCommon, state: TrainState) -> torch.nn.Module:
+    """Set the BN mode (``cfg.freeze_bn``) and the dropout generator (the
+    state's) of the student and the teacher for a step; returns the teacher
+    net (the student itself in pi-model mode)."""
+    nets = [state.student] + ([state.teacher] if cfg.mean_teacher else [])
+    for net in nets:
+        set_freeze_bn(net, cfg.freeze_bn)
+        set_dropout_generator(net, state.generator)
+    return nets[-1]
+
+
+@torch.no_grad()
+def teacher_forward(cfg: ConsistencyCommon, teacher: torch.nn.Module,
+                    x: torch.Tensor) -> torch.Tensor:
+    """A no-grad train-mode teacher forward; in pi-model mode it leaves the
+    student's running statistics as they were."""
+    if cfg.mean_teacher:
+        return teacher(x)
+    with running_stats_kept(teacher):
+        return teacher(x)
+
+
+def teacher_pair(cfg: ConsistencyCommon, teacher: torch.nn.Module,
+                 x0: torch.Tensor, x1: torch.Tensor):
+    """The teacher's logits of two unsupervised batches: one forward over
+    ``[x0 | x1]`` under frozen BN (the same math), else two forwards, x0's
+    statistics updated before x1's."""
+    if cfg.freeze_bn:
+        both = teacher_forward(cfg, teacher, torch.cat([x0, x1]))
+        return both[:x0.shape[0]], both[x0.shape[0]:]
+    return teacher_forward(cfg, teacher, x0), teacher_forward(cfg, teacher, x1)
 
 
 def student_backward(cfg: ConsistencyCommon, student: torch.nn.Module, batch,
                      x_cons: Optional[torch.Tensor],
                      per_px_fn: Callable[[torch.Tensor], torch.Tensor],
                      loss_mask: Optional[torch.Tensor], conf_px: Optional[torch.Tensor],
-                     ramp: float) -> dict:
+                     ramp: float, sup_loss_fn: Optional[Callable] = None) -> dict:
     """The student's loss and backward: CE (ignore) on ``sup_x`` plus, with
     ``x_cons``, ``ramp * cons_weight`` times the masked consistency of
-    ``per_px_fn(logits of x_cons)``. Under frozen BN one forward over
-    ``[sup_x | x_cons]`` is the JAX step's two forwards. Leaves the
+    ``per_px_fn(logits of x_cons)``; ``sup_loss_fn(logits, labels)``
+    replaces the CE. Under frozen BN one forward over
+    ``[sup_x | x_cons]`` is the JAX step's two forwards; with training BN
+    the two run in turn, sup_x's statistics updated first. Leaves the
     gradients in ``.grad``; returns the metrics (device tensors)."""
     sup_x = batch["sup_x"]
     n = sup_x.shape[0]
     logits_cons = None
-    if x_cons is not None and sup_x.shape[1:] == x_cons.shape[1:]:
+    if x_cons is not None and cfg.freeze_bn and sup_x.shape[1:] == x_cons.shape[1:]:
         logits = student(torch.cat([sup_x, x_cons]))
         logits_sup, logits_cons = logits[:n], logits[n:]
     else:
         logits_sup = student(sup_x)
         if x_cons is not None:
             logits_cons = student(x_cons)
-    sup_loss = L.cross_entropy_ignore(logits_sup, batch["sup_y"], cfg.ignore_value)
+    if sup_loss_fn is None:
+        sup_loss = L.cross_entropy_ignore(logits_sup, batch["sup_y"], cfg.ignore_value)
+    else:
+        sup_loss = sup_loss_fn(logits_sup, batch["sup_y"])
     metrics = {"sup_loss": sup_loss.detach()}
     total = sup_loss
     if logits_cons is not None:

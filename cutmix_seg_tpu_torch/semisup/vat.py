@@ -1,9 +1,10 @@
 """VAT (Virtual Adversarial Training) mean-teacher step (port of
-cutmix_seg_tpu.semisup.vat, grad_accum == 1, frozen BN).
+cutmix_seg_tpu.semisup.vat, grad_accum == 1).
 
 One step, in the JAX step's order:
   1. the direction net (the teacher, or the student under
-     ``vat_dir_from_student``), in eval mode, predicts on ``ux_tea``;
+     ``vat_dir_from_student``), in eval mode, predicts on ``ux_tea`` with
+     the running statistics as they are before this step's forwards;
   2. eps0 ~ N(0, 1) from the state's generator (or injected), normalised per
      sample to unit L2 and scaled by 1e-6 * H * W / 1000;
   3. one power step: the direction is the per-sample normalised gradient,
@@ -13,8 +14,9 @@ One step, in the JAX step's order:
   4. the radius: ``vat_radius * sqrt(C * H * W)``, or adaptive, from central
      differences of ``ux_stu`` along H and W (times 0.5);
   5. x_adv = ux_stu + direction * radius, detached;
-  6. a no-grad teacher forward on ``ux_tea``, in float32;
-  7. one student forward/backward over ``[sup_x | x_adv]``: CE(ignore) +
+  6. a no-grad train-mode teacher forward on ``ux_tea``, in float32;
+  7. the student forward/backward over ``[sup_x | x_adv]`` (two forwards
+     with training BN): CE(ignore) +
      cons_sum * ramp * cons_weight, the standard loss menu;
   8. the optimiser step, then the EMA teacher update.
 """
@@ -34,8 +36,10 @@ from cutmix_seg_tpu_torch.semisup.stepcore import (
     ConsistencyCommon,
     confidence_px,
     finish_step,
+    prepare_nets,
     refuse_unported,
     student_backward,
+    teacher_forward,
 )
 
 __all__ = ["VATConfig", "make_vat_step"]
@@ -115,8 +119,7 @@ def make_vat_step(model, opt, cfg: VATConfig):
     use_cons = cfg.cons_weight > 0.0
 
     def step(state: TrainState, batch, ramp, eps0: Optional[torch.Tensor] = None):
-        student = state.student
-        teacher = state.teacher if cfg.mean_teacher else student
+        teacher = prepare_nets(cfg, state)
         x_adv = conf_px = per_px_fn = None
         if use_cons:
             x_tea, x_stu = batch["ux_tea"], batch["ux_stu"]
@@ -125,17 +128,17 @@ def make_vat_step(model, opt, cfg: VATConfig):
                 noise = torch.randn(x_stu.shape, generator=state.generator,
                                     device=x_stu.device)
                 eps0 = _normalize_per_sample(noise) * (1.0e-6 * h * w / 1000.0)
-            dir_net = student if cfg.vat_dir_from_student else teacher
+            dir_net = state.student if cfg.vat_dir_from_student else teacher
             x_adv = adversarial_input(cfg, dir_net, x_tea, x_stu, eps0)
+            logits_tea = teacher_forward(cfg, teacher, x_tea).float()
             with torch.no_grad():
-                logits_tea = teacher(x_tea).float()
                 conf_px = confidence_px(
                     cfg, F.softmax(logits_tea, dim=-1).amax(dim=-1, keepdim=True))
 
             def per_px_fn(logits_stu):
                 return L.consistency_loss_per_pixel(cfg.cons_loss_fn, logits_stu, logits_tea)
 
-        metrics = student_backward(cfg, student, batch, x_adv, per_px_fn,
+        metrics = student_backward(cfg, state.student, batch, x_adv, per_px_fn,
                                    batch["um"].float() if use_cons else None, conf_px, ramp)
         return finish_step(state, opt, cfg), metrics
 

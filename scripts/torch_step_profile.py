@@ -1,16 +1,20 @@
 """Where the device time of the port's full-width train step goes.
 
     python3 scripts/torch_step_profile.py [--algorithm mask_mt] [--steps 5] [--out chiprun_out]
+    python3 scripts/torch_step_profile.py --recipe "densenet161unet ISIC"
 
 Builds the full-width configuration of chip_smoke.py for ``--algorithm``
 (DeepLab v2 R101, bf16, 321x321; mask_mt: the bench.py recipe at bs
-10+10+10; ict, vat_mt, aug_mt: the Pascal recipe's lines, phase 4b) on one
+10+10+10; ict, vat_mt, aug_mt: the Pascal recipe's lines, phase 4b) or, with
+``--recipe``, one of phase 4c's CutMix lines (DenseUNet-161 ISIC with
+training BN, DeepLab v3+ Pascal) on one
 GPU, runs 3 warm-up steps, then records ``--steps`` steps with
 torch.profiler (CPU + CUDA). It prints the card, the window's wall time per
 step, the device-busy share (union of kernel intervals over the window),
 device time by kernel group and the top kernels, and writes the summary
-(``torch_step_profile_<algorithm>.json``) and a Chrome trace
-(``torch_step_trace_<algorithm>.json``) to ``--out``. Fails if the trace
+(``torch_step_profile_<name>.json``) and a Chrome trace
+(``torch_step_trace_<name>.json``) to ``--out``, ``<name>`` being the
+algorithm or the recipe's name with ``_`` for spaces. Fails if the trace
 holds no device time.
 """
 
@@ -29,7 +33,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from chip_smoke import make_full_step  # noqa: E402
+from chip_smoke import RECIPE_STEPS, make_full_step, make_recipe_step  # noqa: E402
 
 # kernel-name substring -> group, first match wins
 GROUPS = (
@@ -43,6 +47,7 @@ GROUPS = (
     ("conv", "convolution"), ("xmma", "convolution"), ("cudnn", "convolution"),
     ("gemm", "convolution"), ("cutlass", "convolution"), ("sm90", "convolution"),
     ("nvjet", "convolution"),  # cuBLASLt kernels behind the 1x1 convolutions
+    ("wgrad", "convolution"), ("dgrad", "convolution"),  # e.g. wgrad_alg0_engine_NHWC
     ("nchw", "layout transforms"), ("nhwc", "layout transforms"),
     ("elementwise", "elementwise"), ("vectorized", "elementwise"),
     ("unrolled", "elementwise"), ("copy", "elementwise"),
@@ -58,6 +63,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--algorithm", default="mask_mt",
                     choices=["mask_mt", "ict", "vat_mt", "aug_mt"])
+    ap.add_argument("--recipe", choices=sorted(RECIPE_STEPS),
+                    help="profile this phase-4c recipe step instead of --algorithm")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args()
@@ -69,7 +76,12 @@ def main() -> int:
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
 
-    state, step, batch = make_full_step(args.algorithm)
+    if args.recipe:
+        state, step, batch = make_recipe_step(args.recipe)[:3]
+        name = args.recipe.replace(" ", "_")
+    else:
+        state, step, batch = make_full_step(args.algorithm)
+        name = args.algorithm
     for _ in range(3):
         state, m = step(state, batch, 1.0)
     torch.cuda.synchronize()
@@ -99,12 +111,12 @@ def main() -> int:
     busy += cur_e - cur_s
     device_us = sum(by_name.values())
     groups = collections.Counter()
-    for name, us in by_name.items():
-        groups[group_of(name)] += us
+    for kernel, us in by_name.items():
+        groups[group_of(kernel)] += us
 
     per = args.steps
     summary = {
-        "device": smi, "algorithm": args.algorithm, "steps": per,
+        "device": smi, "step": name, "steps": per,
         "wall_ms_per_step": wall_us / per / 1e3,
         "device_busy_ms_per_step": busy / per / 1e3,
         "device_busy_share": busy / wall_us,
@@ -116,11 +128,11 @@ def main() -> int:
                         for n, us in by_name.most_common(25)],
     }
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, f"torch_step_profile_{args.algorithm}.json"), "w") as f:
+    with open(os.path.join(args.out, f"torch_step_profile_{name}.json"), "w") as f:
         json.dump(summary, f, indent=1)
-    prof.export_chrome_trace(os.path.join(args.out, f"torch_step_trace_{args.algorithm}.json"))
+    prof.export_chrome_trace(os.path.join(args.out, f"torch_step_trace_{name}.json"))
 
-    print(f"{args.algorithm} window: {summary['wall_ms_per_step']:.2f} ms/step wall, device busy "
+    print(f"{name} window: {summary['wall_ms_per_step']:.2f} ms/step wall, device busy "
           f"{summary['device_busy_ms_per_step']:.2f} ms/step "
           f"({100 * summary['device_busy_share']:.1f}%), "
           f"{summary['kernel_launches_per_step']:.0f} kernels/step")

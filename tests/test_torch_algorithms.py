@@ -346,7 +346,7 @@ def test_supervised_only_when_cons_weight_is_zero(algo):
 
 
 @pytest.mark.parametrize("algo", sorted(ALGOS))
-@pytest.mark.parametrize("kw", [dict(grad_accum=2), dict(freeze_bn=False)])
+@pytest.mark.parametrize("kw", [dict(grad_accum=2)])
 def test_unported_options_raise(algo, kw):
     cfg_cls, make = ALGOS[algo][2:]
     model, state, opt = _tiny_state()

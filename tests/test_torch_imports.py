@@ -56,7 +56,8 @@ def test_every_module_imports_on_cpu():
                                                    "cutmix_seg_tpu_torch.")]
     for mod in ("semisup.mask_mt", "semisup.ict", "semisup.vat", "semisup.aug_cons",
                 "ops.resample", "train.ict", "train.vat_mt", "train.aug_mt",
-                "tools.synthetic_benchmark"):
+                "tools.synthetic_benchmark", "models.denseunet", "models.resunet",
+                "models.deeplab3", "models.pspnet"):
         assert f"cutmix_seg_tpu_torch.{mod}" in names, mod
     for name in names:
         importlib.import_module(name)

@@ -1,8 +1,7 @@
 """The port's DeepLab v2 and its pieces against the JAX package on the CPU.
 
 Forward parity is at float32 with rtol 1e-4 / atol 1e-5: both sides compute
-the same convolutions, but their sums run in another order, and frozen BN is
-one fused affine here against flax's (x - mean) * g + bias."""
+the same convolutions, but their sums run in another order."""
 
 import numpy as np
 import pytest
@@ -135,7 +134,7 @@ def test_frozen_bn_matches_jax(dtype):
     bn = jcommon.batch_norm(True, "bn", jdt)
     ref = np.asarray(bn.apply({"params": p, "batch_stats": s},
                               jnp.asarray(x, jdt or jnp.float32)), np.float32)
-    tbn = tcommon.FrozenBatchNorm2d(c)
+    tbn = tcommon.BatchNorm2d(c)
     tbn.load_state_dict({"weight": torch.from_numpy(p["scale"]),
                          "bias": torch.from_numpy(p["bias"]),
                          "running_mean": torch.from_numpy(s["mean"]),

@@ -268,8 +268,7 @@ def test_sampled_rects_drive_the_step():
     assert all(torch.isfinite(v) for v in out[0].values())
 
 
-@pytest.mark.parametrize("kw", [dict(grad_accum=2), dict(freeze_bn=False),
-                                dict(mask_mode="blend")])
+@pytest.mark.parametrize("kw", [dict(grad_accum=2), dict(mask_mode="blend")])
 def test_unported_options_raise(kw):
     model, state, opt = _tiny_state()
     with pytest.raises((NotImplementedError, ValueError)):

@@ -168,8 +168,9 @@ def test_left_out_options_raise_before_data_loads(name, case, tmp_path, monkeypa
         raise AssertionError("data loaded before the option was refused")
 
     monkeypatch.setattr(engine.datasets, "load_dataset", no_data)
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        _submit(name, tmp_path / "results", case, **REFUSED[case])
+    overrides, exc, match = REFUSED[case]
+    with pytest.raises(exc, match=match):
+        _submit(name, tmp_path / "results", case, **overrides)
 
 
 @pytest.mark.parametrize("name", sorted(TRAINERS))
