@@ -13,7 +13,8 @@ Phases, in order; any failure exits non-zero before the result lines:
      and bf16 beside its bounds and beside torch.add of the same tensors (a
      bandwidth yardstick), the plain version, the unaligned variant, the
      timing's floor (one pixel), and the same calls after a flush that
-     leaves L2 clean; and the kernel and plain version at 224^2;
+     leaves L2 clean; and the kernel and plain version at 224^2 and at the
+     Cityscapes recipe's 4x256x512x3;
   3. small model, GPU vs CPU: the tiny DeepLab v2 in f32 (TF32 off) for two
      steps of each algorithm (mask_mt, ICT, VAT with a fixed and an adaptive
      radius, aug_mt) with injected rects / lambdas / noise / pair matrices,
@@ -24,6 +25,10 @@ Phases, in order; any failure exits non-zero before the result lines:
      DeepLab v3 with VAT, v3+ with aug_mt, PSPNet with the CutMix pi-model
      (layers (1, 1, 1, 1)); losses, parameters and the running statistics of
      student and teacher held as in phase 3;
+  3c. gradient accumulation, GPU vs CPU in f32: the five tiny steps of phase
+     3 at grad_accum 2, each on the tiny DeepLab v2 with frozen BN and on a
+     tiny ResUNet with training BN and dropout (host-drawn masks), held as
+     in phase 3b;
   4. full width: DeepLab v2 R101, bf16, the bench.py recipe at bs 10+10+10,
      321x321: 3 warm-up and 10 timed steps through create_train_state and
      make_mask_mt_step; losses finite, one kernel launch per step;
@@ -36,6 +41,10 @@ Phases, in order; any failure exits non-zero before the result lines:
      R101 at 321^2 with frozen BN, Adam 1e-5 (Pascal); ms/step, img/s, peak
      memory, one kernel launch per step, the DenseUNet's running statistics
      moved and finite;
+  4d. gradient accumulation at full width: the Pascal CutMix line's step
+     (DeepLab v2 R101, 10 + 10 + 10 in chunks of 5) at grad_accum 1 and 2,
+     and phase 4c's DenseUNet-161 ISIC step at grad_accum 2, beside phase
+     4c's grad_accum 1: ms/step, peak memory, one kernel launch per step;
   5. augmentation and eval, card against CPU: host batches of a synthetic
      VOC tree from the port's loader (10 images, 321x321 crops from 512x512
      canvases) through augment_batch on the gather path (crop_rotate_scale,
@@ -58,6 +67,18 @@ Phases, in order; any failure exits non-zero before the result lines:
      CutMix line restored bit for bit (BN buffers and generator included)
      and resumed for a second epoch; then the v3+ CutMix line on the
      synthetic VOC tree (1 epoch x 5 iterations);
+  6d. the recipes' own datasets (1 epoch x 5 iterations each, eval at the
+     end): the Pascal CutMix line with --dataset=pascal_aug and its
+     split_0.pkl on the SBD split of the synthetic tree (10,582 names;
+     streams from the host under --data_on_device auto, as JAX does); the
+     Cityscapes CutMix line at full width (2 epochs, the second timed) on a
+     zip that the port's convert_cityscapes made from synthetic 2048x1024
+     official zips; the
+     ISIC CutMix line's first augmented batch with the store resident
+     (auto) and streamed (off): labels bit-equal, images within 1e-5, the
+     copy and augmentation times of each, and the off line's ms/iteration
+     beside phase 6c's resident run; the phase-6 Pascal CutMix line with
+     --data_on_device on;
   7. the kernel summary line and, last, the device line.
 
 Imports nothing of JAX: it runs where only PyTorch and the CUDA toolkit are.
@@ -73,6 +94,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -84,7 +106,13 @@ from cutmix_seg_tpu_torch.core.train_state import OptimizerConfig, create_train_
 from cutmix_seg_tpu_torch.data import settings
 from cutmix_seg_tpu_torch.data.loader import HostBatchBuilder, train_stream
 from cutmix_seg_tpu_torch.data.sources import PascalVOCDataSource
-from cutmix_seg_tpu_torch.data.synthetic import write_config, write_isic_zip, write_voc_tree
+from cutmix_seg_tpu_torch.data.synthetic import (
+    SBD_TRAIN_AUG,
+    write_cityscapes_zips,
+    write_config,
+    write_isic_zip,
+    write_voc_tree,
+)
 from cutmix_seg_tpu_torch.masks.box_mask import BoxMaskConfig, sample_box_rects_np
 from cutmix_seg_tpu_torch.models.common import (
     IMAGENET_MEAN,
@@ -116,7 +144,9 @@ from cutmix_seg_tpu_torch.semisup.vat import (
     adversarial_input,
     make_vat_step,
 )
+from cutmix_seg_tpu_torch.tools.convert_cityscapes import convert_cityscapes
 from cutmix_seg_tpu_torch.train import aug_mt, common, ict, vat_mt
+from cutmix_seg_tpu_torch.train.engine import TrainEngine
 from cutmix_seg_tpu_torch.train.mask_mt import build_spec, experiment, train_seg_semisup_mask_mt
 
 # H100 SXM data sheet: HBM rate and the float32 rate outside the tensor cores
@@ -125,6 +155,7 @@ PEAK_F32_OPS_PER_S = 67e12
 
 MAIN_SHAPE = (10, 321, 321, 3)  # bench.py: 10 unsupervised images per batch, 321^2
 ISIC_SHAPE = (10, 224, 224, 3)  # the ISIC recipe's CutMix blend: 10 images, 224^2
+CITY_SHAPE = (4, 256, 512, 3)  # the Cityscapes recipe's: 4 images, 256x512 crops
 BATCH, CROP, NUM_CLASSES = 10, 321, 21
 WARMUP, ITERS = 3, 10
 # phase 5: augmented images agree within float32 rounding: source coordinates
@@ -210,6 +241,7 @@ def phase_kernel_vs_plain() -> dict:
     cases = {
         "main_path": (*MAIN_SHAPE, half, True, 0),
         "isic_224": (*ISIC_SHAPE, half, True, 0),
+        "cityscapes_256x512": (*CITY_SHAPE, half, True, 0),
         "two_boxes_64": (4, 64, 64, 3, dict(prop_range=(0.25, 0.75), n_boxes=2), True, 0),
         "odd_height_no_invert": (2, 33, 48, 1, dict(prop_range=(0.5, 0.5), invert=False),
                                  False, 0),
@@ -292,10 +324,24 @@ def phase_kernel_vs_plain() -> dict:
     note(f"[kernel] ISIC path f32 {ISIC_SHAPE}: kernel {ms_224 * 1e3:.2f} us, bound "
          f"{bound_224 * 1e3:.2f} us ({bytes_224 / 1e6:.2f} MB at 3.35 TB/s; "
          f"{bound_224 / ms_224:.1%} of the bound); plain version {plain_224 * 1e3:.2f} us")
+    # the Cityscapes path's shape, f32 and bf16
+    xc0, xc1, rc = _case_inputs(*CITY_SHAPE, half, torch.float32, 0)
+    bc0, bc1 = xc0.bfloat16(), xc1.bfloat16()
+    ms_city = _time_ms(lambda: cutmix_blend(xc0, xc1, rc), flush)
+    ms_city_bf16 = _time_ms(lambda: cutmix_blend(bc0, bc1, rc), flush)
+    plain_city = _time_ms(lambda: cutmix_blend_plain(xc0, xc1, rc), flush)
+    bound_city, bytes_city, _ = _bound_ms(xc0, rc)
+    bound_city_bf16 = _bound_ms(bc0, rc)[0]
+    note(f"[kernel] Cityscapes path {CITY_SHAPE}: kernel f32 {ms_city * 1e3:.2f} us, bound "
+         f"{bound_city * 1e3:.2f} us ({bytes_city / 1e6:.2f} MB at 3.35 TB/s; "
+         f"{bound_city / ms_city:.1%} of the bound); bf16 {ms_city_bf16 * 1e3:.2f} us, bound "
+         f"{bound_city_bf16 * 1e3:.2f} us; plain version f32 {plain_city * 1e3:.2f} us")
     return {"max_abs_err": max_err, "ms": ms["kernel f32"], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "ms_bf16": ms["kernel bf16"],
             "bound_ms_bf16": bf16_bound_ms, "yardstick_gbps": gbps["torch.add f32"],
-            "ms_224": ms_224, "plain_ms_224": plain_224, "bound_ms_224": bound_224}
+            "ms_224": ms_224, "plain_ms_224": plain_224, "bound_ms_224": bound_224,
+            "ms_city": ms_city, "ms_city_bf16": ms_city_bf16, "plain_ms_city": plain_city,
+            "bound_ms_city": bound_city, "bound_ms_city_bf16": bound_city_bf16}
 
 
 def _tiny_deeplab2():
@@ -536,6 +582,52 @@ def phase_small_step_families() -> None:
                 raise RuntimeError(f"{name}: training BN left the running statistics as they were")
             note(f"[small] {name}: {len(moved)} running statistics of the student moved; "
                  f"{masks.k} dropout masks per step")
+    finally:
+        Dropout.draw_keep = draw_keep
+
+
+# phase 3c: grad_accum and, per BN mode, (module, (n, h, w)): chunks of two
+# images, so every batch-statistics BN of the ResUNet sees 8 values per
+# channel
+ACCUM_K = 2
+ACCUM_MODELS = {"frozen BN": (_tiny_deeplab2, (4, 33, 33)),
+                "training BN + dropout": (lambda: ResUNet(4, layers=TINY), (4, 64, 64))}
+
+
+def phase_small_step_accum() -> None:
+    """Phase 3's steps at grad_accum 2, GPU against CPU: f32, TF32 off,
+    the same injected draws and dropout masks, two steps."""
+    steps, lr = 2, 3e-4
+    masks = _HostMasks()
+    draw_keep = Dropout.draw_keep
+    Dropout.draw_keep = lambda self, x: masks.draw(self, x)
+    try:
+        with warnings.catch_warnings():
+            # the batch-mean gate's per-chunk warning (the recipes' gate)
+            warnings.simplefilter("ignore", UserWarning)
+            for algo, (cfg1, make_step) in TINY_ALGOS.items():
+                for mode, (make_module, (n, h, w)) in ACCUM_MODELS.items():
+                    training = mode != "frozen BN"
+                    cfg = dataclasses.replace(cfg1, grad_accum=ACCUM_K,
+                                              freeze_bn=not training)
+                    sd = _tiny_weights(5, make_module())
+                    rng = np.random.RandomState(0)
+                    nb = _tiny_batch(algo, n, h, w, rng)
+                    draws = [_tiny_draws(algo, n, h, w, rng) for _ in range(steps)]
+                    masks.k = 0
+                    runs = {d: _run_tiny(d, sd, make_module, cfg, make_step, nb, draws, masks)
+                            for d in ("cpu", "cuda")}
+                    name = f"{algo} K={ACCUM_K} {mode}"
+                    _check_small_run(name, runs, n * h * w, steps, lr)
+                    moved = [k for k, v in runs["cuda"][1][-1].items()
+                             if k.startswith("student.") and "running" in k
+                             and not torch.equal(v, sd[k[len("student."):]])]
+                    if training and (not moved or masks.k == 0):
+                        raise RuntimeError(f"{name}: {len(moved)} running statistics moved, "
+                                           f"{masks.k} dropout masks drawn")
+                    if training:
+                        note(f"[small] {name}: {len(moved)} running statistics of the student "
+                             f"moved; {masks.k} dropout masks per step")
     finally:
         Dropout.draw_keep = draw_keep
 
@@ -1013,6 +1105,14 @@ RECIPE_STEPS = {
     "densenet161unet ISIC": (ISIC_COMMON + ISIC_LINES["cutmix"][1], 2),
     "deeplabv3plus Pascal": (V3PLUS_CUTMIX, NUM_CLASSES),
 }
+# phase 4d: the steps run at grad_accum 1 and 2 (name -> (flags, classes));
+# the DenseUNet's grad_accum 1 is phase 4c's, in the same call
+ACCUM_STEPS = {
+    "deeplab2 Pascal": (RECIPE_FLAGS, NUM_CLASSES),  # the phase-6 CutMix line
+    "densenet161unet ISIC": RECIPE_STEPS["densenet161unet ISIC"],
+}
+# phase 4d: the DenseUNet step's warm-up and timed steps (each ~0.6 s)
+DENSE_WARMUP, DENSE_ITERS = 2, 5
 # phase 6c: the synthetic ISIC zip (248^2, the converter's size) and the runs
 ISIC_TRAIN, ISIC_VAL, ISIC_ITERS, V3PLUS_ITERS = 60, 10, 4, 5
 
@@ -1021,13 +1121,14 @@ def _running_stats(net: torch.nn.Module) -> dict:
     return {k: v.detach().clone() for k, v in net.named_buffers() if "running" in k}
 
 
-def make_recipe_step(name: str):
-    """A recipe's CutMix line (``RECIPE_STEPS``) as a bare step at full
-    width, built as the trainer builds it (its flags, ``build_spec``,
-    ``build_model``, the optimiser of its schedule), on random batches made
-    on the card: (state, step, batch, parsed flags, step config)."""
-    flags, classes = RECIPE_STEPS[name]
-    p = _parse_flags(flags)
+def make_recipe_step(name: str, extra=()):
+    """A recipe's CutMix line (``RECIPE_STEPS``, ``ACCUM_STEPS``) and
+    ``extra`` flags as a bare step at full width, built as the trainer
+    builds it (its flags, ``build_spec``, ``build_model``, the optimiser of
+    its schedule), on random batches made on the card: (state, step, batch,
+    parsed flags, step config)."""
+    flags, classes = {**RECIPE_STEPS, **ACCUM_STEPS}[name]
+    p = _parse_flags(list(flags) + list(extra))
     spec, cfg = build_spec(p)
     model = common.build_model(p["arch"], classes, p["compute_dtype"])
     total = p["iters_per_epoch"] * p["num_epochs"]
@@ -1051,10 +1152,12 @@ def make_recipe_step(name: str):
     return state, step, batch, p, cfg
 
 
-def phase_recipe_step(name: str) -> dict:
-    """``make_recipe_step(name)``: 3 warm-up and 10 timed steps."""
-    state, step, batch, p, cfg = make_recipe_step(name)
-    classes = RECIPE_STEPS[name][1]
+def phase_recipe_step(name: str, extra=(), warmup: int = WARMUP, iters: int = ITERS,
+                      tag: str = "recipe step") -> dict:
+    """``make_recipe_step(name, extra)``: ``warmup`` warm-up and ``iters``
+    timed steps."""
+    state, step, batch, p, cfg = make_recipe_step(name, extra)
+    classes = {**RECIPE_STEPS, **ACCUM_STEPS}[name][1]
     crop = tuple(batch["sup_x"].shape[1:3])
     n_params = sum(t.numel() for t in state.student.parameters())
     stats0 = _running_stats(state.student)
@@ -1064,13 +1167,13 @@ def phase_recipe_step(name: str) -> dict:
 
     build.launch_counts.clear()
     t0 = time.perf_counter()
-    for _ in range(WARMUP):
+    for _ in range(warmup):
         state, m = step(state, batch, 1.0)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     timed = []
     t0 = time.perf_counter()
-    for _ in range(ITERS):
+    for _ in range(iters):
         state, m = step(state, batch, 1.0)
         timed.append(m)
     torch.cuda.synchronize()
@@ -1081,8 +1184,9 @@ def phase_recipe_step(name: str) -> dict:
         if sorted(m) != ["conf_rate", "cons_loss", "sup_loss"] or not all(
                 math.isfinite(v.item()) for v in m.values()):
             raise RuntimeError(f"{name}: non-finite or missing metrics {m}")
-    if launches.get(KERNEL, 0) != WARMUP + ITERS:
-        raise RuntimeError(f"{name}: expected {WARMUP + ITERS} {KERNEL} launches, got {launches}")
+    # one launch per step, over the whole batch, whatever grad_accum is
+    if launches.get(KERNEL, 0) != warmup + iters:
+        raise RuntimeError(f"{name}: expected {warmup + iters} {KERNEL} launches, got {launches}")
     stats = _running_stats(state.student)
     moved = sum(not torch.equal(v, stats0[k]) for k, v in stats.items())
     finite = all(bool(torch.isfinite(v).all()) for v in stats.values())
@@ -1093,14 +1197,15 @@ def phase_recipe_step(name: str) -> dict:
         logits = state.teacher(batch["sup_x"][:2])
     if logits.shape != (2, *crop, classes) or not bool(torch.isfinite(logits).all()):
         raise RuntimeError(f"{name}: teacher logits {tuple(logits.shape)} not finite/expected")
-    result = {"ms_per_step": dt / ITERS * 1e3, "img_per_s": BATCH * ITERS / dt,
+    result = {"ms_per_step": dt / iters * 1e3, "img_per_s": BATCH * iters / dt,
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "warmup_s": warm_s,
               "launches": launches.get(KERNEL, 0), "params": n_params,
-              "stats_moved": moved, "stats": len(stats),
+              "stats_moved": moved, "stats": len(stats), "grad_accum": cfg.grad_accum,
               "last": {k: v.item() for k, v in timed[-1].items()}}
-    note(f"[recipe step] {name}: {p['arch']} {p['compute_dtype']} bs {BATCH}+{BATCH}+{BATCH} "
-         f"{crop[0]}^2, freeze_bn={cfg.freeze_bn}, {p['opt_type']} {p['learning_rate']} "
-         f"{p['lr_sched']} ({n_params} params): {result['ms_per_step']:.2f} ms/step, "
+    note(f"[{tag}] {name}: {p['arch']} {p['compute_dtype']} bs {BATCH}+{BATCH}+{BATCH} "
+         f"{crop[0]}x{crop[1]}, grad_accum {cfg.grad_accum}, freeze_bn={cfg.freeze_bn}, "
+         f"{p['opt_type']} {p['learning_rate']} {p['lr_sched']} ({n_params} params): "
+         f"{warmup} warm-up + {iters} timed: {result['ms_per_step']:.2f} ms/step, "
          f"{result['img_per_s']:.2f} img/s, peak {result['peak_mem_gib']:.2f} GiB, warm-up "
          f"{warm_s:.1f} s, {result['launches']} {KERNEL} launches, running statistics moved "
          f"{moved}/{len(stats)} and finite, last metrics {result['last']}")
@@ -1116,12 +1221,12 @@ def _trainer_record(engine, iters: int) -> dict:
             "epoch_s": rec["epoch_time"], "eval_s": rec["eval_time"]}
 
 
-def phase_isic_trainers(tmp: str, voc_root: str) -> dict:
-    """The ISIC recipe's seven lines at full width on a synthetic ISIC zip,
-    one epoch of ISIC_ITERS iterations each; the CutMix line's checkpoint
-    restored bit for bit and resumed for a second epoch; then the v3+
-    CutMix line on the synthetic VOC tree."""
-    zip_path = write_isic_zip(os.path.join(tmp, "isic2017.zip"), ISIC_TRAIN, ISIC_VAL, seed=0)
+def phase_isic_trainers(tmp: str, voc_root: str, zip_path: str) -> dict:
+    """The ISIC recipe's seven lines at full width on the synthetic ISIC zip
+    ``zip_path``, one epoch of ISIC_ITERS iterations each, the store
+    resident (--data_on_device auto stages the zip's 60 canvases); the
+    CutMix line's checkpoint restored bit for bit and resumed for a second
+    epoch; then the v3+ CutMix line on the synthetic VOC tree."""
     os.environ["CUTMIX_SEG_CONFIG"] = write_config(os.path.join(tmp, "seg_isic.cfg"),
                                                    voc_root, zip_path)
     settings._config = None  # read the new cfg
@@ -1139,6 +1244,8 @@ def phase_isic_trainers(tmp: str, voc_root: str) -> dict:
                                f"launches (expected {want})")
         if engine.p["freeze_bn"] or not engine.p["bin_fill_holes"]:
             raise RuntimeError(f"ISIC {name}: not the recipe's training BN / fill-holes eval")
+        if engine.resident is None or "Data on device:" not in log:
+            raise RuntimeError(f"ISIC {name}: --data_on_device auto did not stage the store")
         for part, net in (("student", engine.state.student), ("teacher", engine.state.teacher)):
             var = [v for k, v in _running_stats(net).items() if k.endswith("running_var")]
             if not all(bool(torch.isfinite(v).all()) and not bool((v == 1).all()) for v in var):
@@ -1193,6 +1300,173 @@ def phase_isic_trainers(tmp: str, voc_root: str) -> dict:
     return out
 
 
+# phase 6d: the Pascal CutMix line as the recipe passes its dataset
+# (run_pascal_aug_experiments.sh: PARAMS_PASCALAUG_DEEPLAB2I), on the SBD
+# split of the synthetic tree
+SPLIT_0 = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "data", "splits", "pascal_aug", "split_0.pkl")
+RECIPE_ITERS = 5
+PASCAL_AUG_CUTMIX = RECIPE_FLAGS + ["--dataset=pascal_aug", f"--split_path={SPLIT_0}",
+                                    "--n_sup=100", f"--iters_per_epoch={RECIPE_ITERS}",
+                                    "--num_epochs=1"]
+# phase 6d: a CutMix line of run_cityscapes_experiments.sh
+# (PARAMS_CITYSCAPES_DEEPLAB2I, AUG_CITYSCAPES, REG_MASK_CUTMIX), its own
+# flags bar --n_sup and the epoch sizes, on CITY_TRAIN + CITY_VAL synthetic
+# 2048x1024 frames converted as the recipe's data is (downsample 2)
+CITY_TRAIN, CITY_VAL = 16, 4
+CITYSCAPES_CUTMIX = [
+    "--dataset=cityscapes", "--arch=resnet101_deeplab_imagenet", "--freeze_bn",
+    "--batch_size=4", "--learning_rate=3e-5", "--crop_size=256,512", "--aug_hflip",
+    "--aug_strong_colour", "--cons_weight=1.0", "--mask_mode=mix", "--mask_prop_range=0.5",
+    "--conf_thresh=0.97", "--n_sup=8", "--no_pretrained", f"--iters_per_epoch={RECIPE_ITERS}",
+    "--num_epochs=2",
+]
+# phase 6d: iterations of the store's copy / augmentation timing
+STORE_ITERS = 5
+
+
+def _checked_run(results: str, flags, desc: str, iters: int, classes: int, epochs: int = 1):
+    """A CutMix line through the trainer: ``epochs`` epochs of ``iters``
+    iterations with eval, one kernel launch per iteration; the last epoch's
+    record, the run's engine and its log."""
+    engine, launches, log = _run_trainer(results, flags, None, desc=desc)
+    losses = _epoch_line(log, epochs)
+    n = epochs * iters
+    if launches != n or engine.state.step != n or engine.n_classes != classes:
+        raise RuntimeError(f"{desc}: {launches} {KERNEL} launches, step {engine.state.step}, "
+                           f"{engine.n_classes} classes (expected {n}, {n}, {classes})")
+    out = dict(_trainer_record(engine, iters), launches=launches, losses=losses,
+               resident="Data on device:" in log)
+    return out, engine, log
+
+
+def _store_batches(flags, mode: str, run_dir: str) -> dict:
+    """The trainer's first STORE_ITERS iterations' batches with
+    --data_on_device ``mode``, built but not stepped: the first augmented
+    batch, and the median times (from the second iteration on) of the copy
+    to the card of what an iteration ships and of the augmentation (with
+    the store's gather)."""
+    p = _parse_flags(list(flags) + [f"--data_on_device={mode}"])
+    spec, cfg = build_spec(p)
+    engine = TrainEngine(job.RunContext(run_dir, mode), spec, cfg, p)
+    if not engine.setup():
+        raise RuntimeError(f"the trainer's setup failed with --data_on_device {mode}")
+    engine._open_epoch_streams(0)
+    copy_s, aug_s, first = [], [], None
+    try:
+        for _ in range(STORE_ITERS):
+            host = {"sup": next(engine.sup_stream), **engine.spec.fetch(engine, engine.streams)}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            raw = {k: common.to_device(v, engine.device) for k, v in host.items()}
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            batch = engine.make_batch(raw)
+            torch.cuda.synchronize()
+            copy_s.append(t1 - t0)
+            aug_s.append(time.perf_counter() - t1)
+            first = first or {k: v.cpu() for k, v in batch.items()}
+    finally:
+        engine.close_streams()
+    nbytes = sum(v.nbytes for part in host.values() for v in part.values())
+    return {"batch": first, "resident": engine.resident is not None, "shipped_mb": nbytes / 1e6,
+            "copy_ms": float(np.median(copy_s[1:])) * 1e3,
+            "augment_ms": float(np.median(aug_s[1:])) * 1e3}
+
+
+def phase_recipe_datasets(tmp: str, voc_root: str, isic_zip: str, isic_cutmix: dict) -> dict:
+    """Phase 6d: the CutMix trainer on the recipes' own datasets, and the
+    device-resident store against streaming."""
+    out = {}
+    t0 = time.perf_counter()
+    x_zip, y_zip = write_cityscapes_zips(tmp, CITY_TRAIN, CITY_VAL, size=(1024, 2048), seed=0)
+    t1 = time.perf_counter()
+    city_zip = os.path.join(tmp, "cityscapes.zip")
+    convert_cityscapes(x_zip, y_zip, city_zip, 2, progress=False)
+    t2 = time.perf_counter()
+    note(f"[recipes] Cityscapes: {CITY_TRAIN} + {CITY_VAL} synthetic 2048x1024 frames: official "
+         f"zips written in {t1 - t0:.2f} s, converted (downsample 2) in {t2 - t1:.2f} s")
+    os.environ["CUTMIX_SEG_CONFIG"] = write_config(
+        os.path.join(tmp, "seg_recipes.cfg"), voc_root, isic_zip, cityscapes_zip=city_zip)
+    settings._config = None
+    results = os.path.join(tmp, "results_recipes")
+
+    rec, engine, log = _checked_run(results, PASCAL_AUG_CUTMIX, "pascal_aug_cutmix",
+                                    RECIPE_ITERS, NUM_CLASSES)
+    if rec["resident"] or f"len(unsup_ndx)={SBD_TRAIN_AUG}" not in log \
+            or f"len(val_ndx)={VOC_VAL}" not in log:
+        raise RuntimeError("pascal_aug: not the SBD split streamed from the host")
+    out["pascal_aug"] = rec
+    note(f"[recipes] Pascal CutMix line with --dataset=pascal_aug --split_path=split_0.pkl "
+         f"--n_sup=100 ({SBD_TRAIN_AUG} train_aug names, {VOC_VAL} val; streamed, as "
+         f"--data_on_device auto decides at {SBD_TRAIN_AUG} x 1,048,584 B): epoch 1 "
+         f"{rec['losses']}, VAL mIoU {rec['val_miou']:.4f}; {rec['ms_per_iter']:.2f} "
+         f"ms/iteration (the first included); {rec['launches']} {KERNEL} launches")
+    del engine
+    torch.cuda.empty_cache()
+
+    # two epochs: the first pays cuDNN's choice of algorithms for the new
+    # shapes, the second is timed
+    rec, engine, log = _checked_run(results, CITYSCAPES_CUTMIX, "cityscapes_cutmix",
+                                    RECIPE_ITERS, 19, epochs=2)
+    img = engine.ds.get_image(int(engine.sup_ndx[0]))
+    if img.shape != (512, 1024, 3) or engine.ds.canvas_hw != (512, 1024):
+        raise RuntimeError(f"Cityscapes: image {img.shape}, canvas {engine.ds.canvas_hw}")
+    out["cityscapes"] = dict(rec, write_s=t1 - t0, convert_s=t2 - t1)
+    note(f"[recipes] Cityscapes CutMix line (R101, frozen BN, bs 4, 256x512 crops of 1024x512 "
+         f"images, 19 classes; store resident: {rec['resident']}): epoch 2 {rec['losses']}, "
+         f"VAL mIoU {rec['val_miou']:.4f} over {CITY_VAL} val images; epoch 2 "
+         f"{rec['ms_per_iter']:.2f} ms/iteration, eval {rec['eval_s']:.2f} s; {rec['launches']} "
+         f"{KERNEL} launches in {2 * RECIPE_ITERS} iterations")
+    del engine
+    torch.cuda.empty_cache()
+
+    # the ISIC CutMix line: the store (auto stages it) against streaming
+    isic_flags = ISIC_COMMON + ISIC_LINES["cutmix"][1] + [
+        "--no_pretrained", f"--iters_per_epoch={ISIC_ITERS}", "--num_epochs=1"]
+    store = {mode: _store_batches(isic_flags, mode, os.path.join(tmp, f"store_{mode}"))
+             for mode in ("auto", "off")}
+    if not store["auto"]["resident"] or store["off"]["resident"]:
+        raise RuntimeError("ISIC: auto did not stage the store, or off did")
+    on, off = store["auto"]["batch"], store["off"]["batch"]
+    if sorted(on) != sorted(off) or not torch.equal(on["sup_y"], off["sup_y"]):
+        raise RuntimeError("ISIC: the resident batch's labels differ from the streamed ones")
+    img_err = max((on[k] - off[k]).abs().max().item() for k in on if k != "sup_y")
+    if not img_err <= 1e-5:
+        raise RuntimeError(f"ISIC: resident and streamed images differ by {img_err}")
+    torch.cuda.empty_cache()
+    rec_off, engine, _ = _checked_run(results, isic_flags + ["--data_on_device=off"],
+                                      "isic_cutmix_off", ISIC_ITERS, 2)
+    del engine
+    torch.cuda.empty_cache()
+    out["isic_store"] = {"auto": {k: v for k, v in store["auto"].items() if k != "batch"},
+                         "off": {k: v for k, v in store["off"].items() if k != "batch"},
+                         "max_abs_err_images": img_err, "off_run": rec_off,
+                         "auto_ms_per_iter": isic_cutmix["ms_per_iter"]}
+    note(f"[recipes] ISIC CutMix line, first augmented batch resident (auto) vs streamed (off): "
+         f"labels bit-equal, images max_abs_err {img_err:.3g}; per iteration shipped "
+         f"{store['auto']['shipped_mb']:.4f} MB vs {store['off']['shipped_mb']:.2f} MB, copy "
+         f"{store['auto']['copy_ms']:.3f} ms vs {store['off']['copy_ms']:.3f} ms, augmentation "
+         f"(with the gather) {store['auto']['augment_ms']:.2f} ms vs "
+         f"{store['off']['augment_ms']:.2f} ms (medians of {STORE_ITERS - 1}); trainer "
+         f"{isic_cutmix['ms_per_iter']:.2f} ms/iteration resident (phase 6c) vs "
+         f"{rec_off['ms_per_iter']:.2f} streamed ({ISIC_ITERS} iterations, the first included)")
+
+    # the phase-6 Pascal CutMix line with the store on
+    rec, engine, log = _checked_run(
+        results, RECIPE_FLAGS + ["--data_on_device=on", f"--iters_per_epoch={RECIPE_ITERS}",
+                                 "--num_epochs=1"], "voc_cutmix_on", RECIPE_ITERS, NUM_CLASSES)
+    if f"Data on device: {VOC_TRAIN} canvases" not in log:
+        raise RuntimeError("VOC --data_on_device on: the store was not staged")
+    out["voc_on"] = rec
+    note(f"[recipes] Pascal CutMix line on the VOC tree with --data_on_device on "
+         f"({VOC_TRAIN} canvases staged): epoch 1 {rec['losses']}; {rec['ms_per_iter']:.2f} "
+         f"ms/iteration (the first included); {rec['launches']} {KERNEL} launches")
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU",
@@ -1203,6 +1477,7 @@ def main() -> int:
     k = phase_kernel_vs_plain()
     phase_small_step()
     phase_small_step_families()
+    phase_small_step_accum()
     full = phase_full_step()
     full_algos = {}
     for algo in FULL_ALGOS:
@@ -1216,14 +1491,32 @@ def main() -> int:
     for name in RECIPE_STEPS:
         torch.cuda.empty_cache()
         recipe_steps[name] = phase_recipe_step(name)
+    accum = {}
+    for name in ACCUM_STEPS:
+        dense = name.startswith("densenet")
+        for accum_k in ((ACCUM_K,) if dense else (1, ACCUM_K)):
+            torch.cuda.empty_cache()
+            accum[f"{name} K={accum_k}"] = phase_recipe_step(
+                name, [f"--grad_accum={accum_k}"], *((DENSE_WARMUP, DENSE_ITERS) if dense else ()),
+                tag="accum step")
+    accum["densenet161unet ISIC K=1"] = recipe_steps["densenet161unet ISIC"]
+    note("[accum step] grad_accum 1 vs 2 in this call: " + ", ".join(
+        f"{n} {r['ms_per_step']:.2f} ms/step, peak {r['peak_mem_gib']:.2f} GiB"
+        for n, r in sorted(accum.items())))
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        voc_root = write_voc_tree(os.path.join(tmp, "VOC2012"), VOC_TRAIN, VOC_VAL, seed=0)
+        t0 = time.perf_counter()
+        voc_root = write_voc_tree(os.path.join(tmp, "VOC2012"), VOC_TRAIN, VOC_VAL, seed=0,
+                                  sbd_train=SBD_TRAIN_AUG)
+        note(f"[recipes] synthetic VOC tree, {VOC_TRAIN} + {VOC_VAL} images and the SBD split's "
+             f"{SBD_TRAIN_AUG} linked train_aug names, written in {time.perf_counter() - t0:.2f} s")
         phase_augment_eval(voc_root)
         trainer = phase_trainer(voc_root, full["ms_per_step"])
         trainers = phase_trainers_algos(
             voc_root, {a: r["ms_per_step"] for a, r in full_algos.items()})
-        isic = phase_isic_trainers(tmp, voc_root)
+        isic_zip = write_isic_zip(os.path.join(tmp, "isic2017.zip"), ISIC_TRAIN, ISIC_VAL, seed=0)
+        isic = phase_isic_trainers(tmp, voc_root, isic_zip)
+        recipes = phase_recipe_datasets(tmp, voc_root, isic_zip, isic["cutmix"])
     kernels = [{
         "name": KERNEL, "route": "cuda",
         "source": "cutmix_seg_tpu_torch/csrc/cutmix_blend.cu",
@@ -1240,14 +1533,28 @@ def main() -> int:
                                 for n, r in recipe_steps.items()},
                              **{f"trainer ISIC {n} (phase 6c)": r["launches"]
                                 for n, r in isic.items() if n != "v3plus_cutmix"},
-                             "trainer v3+ cutmix (phase 6c)": isic["v3plus_cutmix"]["launches"]},
+                             "trainer v3+ cutmix (phase 6c)": isic["v3plus_cutmix"]["launches"],
+                             **{f"step {n} (phase 4d)": r["launches"] for n, r in accum.items()
+                                if not n.startswith("densenet161unet ISIC K=1")},
+                             "trainer ISIC cutmix, store resident (phase 6c)":
+                                 isic["cutmix"]["launches"],
+                             "trainer ISIC cutmix, streamed (phase 6d)":
+                                 recipes["isic_store"]["off_run"]["launches"],
+                             "trainer pascal_aug cutmix (phase 6d)":
+                                 recipes["pascal_aug"]["launches"],
+                             "trainer Cityscapes cutmix (phase 6d)":
+                                 recipes["cityscapes"]["launches"],
+                             "trainer VOC cutmix --data_on_device on (phase 6d)":
+                                 recipes["voc_on"]["launches"]},
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
         "kernel_us": k["ms"] * 1e3, "plain_us": k["plain_ms"] * 1e3,
         "bound_us": k["bound_ms"] * 1e3, "ms_bf16": k["ms_bf16"],
         "bound_ms_bf16": k["bound_ms_bf16"], "yardstick_gbps": k["yardstick_gbps"],
         "ms_224": k["ms_224"], "plain_ms_224": k["plain_ms_224"],
-        "bound_ms_224": k["bound_ms_224"],
+        "bound_ms_224": k["bound_ms_224"], "ms_city": k["ms_city"],
+        "ms_city_bf16": k["ms_city_bf16"], "plain_ms_city": k["plain_ms_city"],
+        "bound_ms_city": k["bound_ms_city"], "bound_ms_city_bf16": k["bound_ms_city_bf16"],
     }]
     note(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,7 @@
 """Host-side data pipeline: threaded decode -> fixed-size canvases -> device
-(a copy of cutmix_seg_tpu.data.loader without the resident index mode).
+(a copy of cutmix_seg_tpu.data.loader). With a ``data.resident`` store the
+builder runs in index mode instead: no decode, only row indices, sizes and
+the sampled geometry.
 
 Replaces the reference's torch DataLoader worker-process machinery
 (reference: train_seg_semisup_mask_mt.py:199-217, datapipe/seg_data.py) with a
@@ -118,14 +120,22 @@ class HostBatchBuilder:
         cache_items: int = 1024,
         n_threads: int = 8,
         ship_window: bool = True,
+        resident=None,
     ):
+        """``resident``: a data.resident.ResidentDataset; switches the
+        builder to INDEX mode: no decode, no canvas assembly; batches carry
+        only resident row indices ('idx'), true sizes and the sampled
+        geometry (the trainer gathers the canvases on the device). The
+        geometry draws are those of streaming mode, in the same order."""
         self.source = source
         self.geom = geom
         self.with_labels = with_labels
         self.pair_geom = pair_geom
         self.canvas_hw = canvas_hw or source.canvas_hw
+        self.resident = resident
         self.window_hw = (
-            ship_window_hw(geom, self.canvas_hw) if ship_window else None
+            ship_window_hw(geom, self.canvas_hw)
+            if ship_window and resident is None else None
         )
         self.cache = DecodeCache(cache_items)
         self.pool = ThreadPoolExecutor(max_workers=n_threads)
@@ -169,9 +179,32 @@ class HostBatchBuilder:
                     self.geom, tuple(img_sizes[k]), rng, self.with_labels),))
         return geoms
 
+    def _build_index_mode(self, indices, rng) -> Dict[str, np.ndarray]:
+        b = len(indices)
+        rows = self.resident.rows(indices)
+        img_sizes = self.resident.sizes_host[rows].astype(np.int32)
+        out = {"idx": rows, "sizes": img_sizes}
+        if self.geom is not None:
+            geoms = self._sample_geoms(img_sizes, rng)
+            n_g = 2 if self.pair_geom else 1
+            ms = [np.zeros((b, 2, 3), np.float32) for _ in range(n_g)]
+            interp = [np.zeros((b,), np.int32) for _ in range(n_g)]
+            for k in range(b):
+                for gi, (m, it) in enumerate(geoms[k]):
+                    ms[gi][k] = m
+                    interp[gi][k] = it
+            if self.pair_geom:
+                out.update({"m0": ms[0], "m1": ms[1],
+                            "interp0": interp[0], "interp1": interp[1]})
+            else:
+                out.update({"m": ms[0], "interp": interp[0]})
+        return out
+
     def build(self, indices: np.ndarray, rng: np.random.RandomState) -> Dict[str, np.ndarray]:
         from cutmix_seg_tpu_torch.aug import affine as A
 
+        if self.resident is not None:
+            return self._build_index_mode(indices, rng)
         b = len(indices)
         decoded = list(self.pool.map(self._decode, indices))
         img_sizes = np.array([d[0].shape[:2] for d in decoded], np.int32)

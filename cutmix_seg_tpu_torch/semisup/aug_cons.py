@@ -1,5 +1,5 @@
 """Augmentation-driven consistency step, aug_mt (port of
-cutmix_seg_tpu.semisup.aug_cons, grad_accum == 1).
+cutmix_seg_tpu.semisup.aug_cons).
 
 The two elements of each unsupervised pair are two crops of one image with
 different geometry. One step, in the JAX step's order:
@@ -15,6 +15,9 @@ different geometry. One step, in the JAX step's order:
      cons_sum * ramp * cons_weight; prob-space losses take the warped
      probabilities as targets, logit-space losses the warped logits;
   5. the optimiser step, then the EMA teacher update.
+
+With ``grad_accum`` K > 1, steps 1-4 run once per strided chunk
+(``stepcore.accumulate``): the pair matrices are chunked with the images.
 
 The reference's 'logits_var' branch reuses a stale probability delta and so
 computes 'var' (reference: train_seg_semisup_aug_mt.py:370-374); the JAX
@@ -33,12 +36,13 @@ from cutmix_seg_tpu_torch.ops.resample import grid_sample_affine
 from cutmix_seg_tpu_torch.semisup import losses as L
 from cutmix_seg_tpu_torch.semisup.stepcore import (
     ConsistencyCommon,
+    accumulate,
     confidence_px,
     finish_step,
     prepare_nets,
-    refuse_unported,
     student_backward,
     teacher_forward,
+    validate_accum,
 )
 
 __all__ = ["AugConsConfig", "make_aug_cons_step"]
@@ -59,31 +63,40 @@ def make_aug_cons_step(model, opt, cfg: AugConsConfig):
 
     Returns ``step(state, batch, ramp) -> (state, metrics)``.
     """
-    refuse_unported(cfg)
+    if cfg.grad_accum > 1:
+        validate_accum(cfg, "aug_mt")
     use_cons = cfg.cons_weight > 0.0
 
     def step(state: TrainState, batch, ramp):
         teacher = prepare_nets(cfg, state)
-        x1 = loss_mask = conf_px = per_px_fn = None
+        full = {"sup_x": batch["sup_x"], "sup_y": batch["sup_y"]}
         if use_cons:
-            x1 = batch["ux1"]
-            hw = tuple(x1.shape[1:3])
-            logits_tea = teacher_forward(cfg, teacher, batch["ux0"]).float()
-            with torch.no_grad():
-                theta = batch["xf0_to_1"].float()
-                prob_tea = F.softmax(logits_tea, dim=-1)
-                logits_tea_in_stu = grid_sample_affine(logits_tea, theta, hw)
-                prob_tea_in_stu = grid_sample_affine(prob_tea, theta, hw)
-                um0_in_stu = grid_sample_affine(batch["um0"].float(), theta, hw)
-                loss_mask = um0_in_stu * batch["um1"].float()
-                conf_px = confidence_px(cfg, prob_tea_in_stu.amax(dim=-1, keepdim=True))
+            full.update(ux0=batch["ux0"], ux1=batch["ux1"], um0=batch["um0"].float(),
+                        um1=batch["um1"].float(), xf=batch["xf0_to_1"].float())
 
-            def per_px_fn(logits_stu):
-                return L.consistency_from_prob_targets(
-                    cfg.cons_loss_fn, logits_stu.float(), logits_tea_in_stu, prob_tea_in_stu)
+        def one_chunk(c):
+            x1 = loss_mask = conf_px = per_px_fn = None
+            if use_cons:
+                x1 = c["ux1"]
+                hw = tuple(x1.shape[1:3])
+                logits_tea = teacher_forward(cfg, teacher, c["ux0"]).float()
+                with torch.no_grad():
+                    prob_tea = F.softmax(logits_tea, dim=-1)
+                    logits_tea_in_stu = grid_sample_affine(logits_tea, c["xf"], hw)
+                    prob_tea_in_stu = grid_sample_affine(prob_tea, c["xf"], hw)
+                    um0_in_stu = grid_sample_affine(c["um0"], c["xf"], hw)
+                    loss_mask = um0_in_stu * c["um1"]
+                    conf_px = confidence_px(cfg, prob_tea_in_stu.amax(dim=-1, keepdim=True))
 
-        metrics = student_backward(cfg, state.student, batch, x1, per_px_fn, loss_mask,
-                                   conf_px, ramp)
+                def per_px_fn(logits_stu):
+                    return L.consistency_from_prob_targets(
+                        cfg.cons_loss_fn, logits_stu.float(), logits_tea_in_stu,
+                        prob_tea_in_stu)
+
+            return student_backward(cfg, state.student, c, x1, per_px_fn, loss_mask,
+                                    conf_px, ramp)
+
+        metrics = accumulate(cfg.grad_accum, state.student, full, one_chunk)
         return finish_step(state, opt, cfg), metrics
 
     return step

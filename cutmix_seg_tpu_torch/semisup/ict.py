@@ -1,5 +1,5 @@
 """ICT (Interpolation Consistency Training) mean-teacher step (port of
-cutmix_seg_tpu.semisup.ict, grad_accum == 1).
+cutmix_seg_tpu.semisup.ict).
 
 One step, in the JAX step's order:
   1. a per-sample mix factor lambda ~ Beta(ict_alpha, ict_alpha), drawn on
@@ -17,6 +17,10 @@ One step, in the JAX step's order:
      with training BN): CE(ignore) +
      cons_sum * ramp * cons_weight;
   6. the optimiser step, then the EMA teacher update.
+
+With ``grad_accum`` K > 1, steps 1-2 run once over the whole batch (the
+lambdas do not depend on K) and steps 3-5 once per strided chunk
+(``stepcore.accumulate``).
 """
 
 from __future__ import annotations
@@ -31,12 +35,13 @@ from cutmix_seg_tpu_torch.core.train_state import TrainState
 from cutmix_seg_tpu_torch.semisup import losses as L
 from cutmix_seg_tpu_torch.semisup.stepcore import (
     ConsistencyCommon,
+    accumulate,
     confidence_px,
     finish_step,
     prepare_nets,
-    refuse_unported,
     student_backward,
     teacher_pair,
+    validate_accum,
 )
 
 __all__ = ["ICTConfig", "beta_logit", "make_ict_step", "sample_beta"]
@@ -82,12 +87,13 @@ def make_ict_step(model, opt, cfg: ICTConfig):
     Returns ``step(state, batch, ramp, lam=None) -> (state, metrics)``;
     ``lam`` (N, 1, 1, 1) replaces the sampled mix factors.
     """
-    refuse_unported(cfg)
+    if cfg.grad_accum > 1:
+        validate_accum(cfg, "ict")
     use_cons = cfg.cons_weight > 0.0
 
     def step(state: TrainState, batch, ramp, lam: Optional[torch.Tensor] = None):
         teacher = prepare_nets(cfg, state)
-        x_mixed = um_mixed = conf_px = per_px_fn = None
+        full = {"sup_x": batch["sup_x"], "sup_y": batch["sup_y"]}
         if use_cons:
             with torch.no_grad():
                 ux0, ux1 = batch["ux0_stu"], batch["ux1_stu"]
@@ -95,25 +101,34 @@ def make_ict_step(model, opt, cfg: ICTConfig):
                 if lam is None:
                     lam = sample_beta(cfg.ict_alpha, (n, 1, 1, 1), state.generator)
                 lam = lam.to(ux0.dtype)
-                x_mixed = ux0 * (1.0 - lam) + ux1 * lam
-                um_mixed = (batch["um0"] * (1.0 - lam) + batch["um1"] * lam).float()
+                full.update(
+                    ux0_tea=batch["ux0_tea"], ux1_tea=batch["ux1_tea"],
+                    x_mixed=ux0 * (1.0 - lam) + ux1 * lam,
+                    um_mixed=(batch["um0"] * (1.0 - lam) + batch["um1"] * lam).float(),
+                    lam=lam.float())
 
-                tea0, tea1 = (t.float() for t in teacher_pair(
-                    cfg, teacher, batch["ux0_tea"], batch["ux1_tea"]))
-                p0, p1 = F.softmax(tea0, dim=-1), F.softmax(tea1, dim=-1)
-                lam32 = lam.float()
-                logits_tea_mix = tea0 * (1 - lam32) + tea1 * lam32
-                prob_tea_mix = p0 * (1 - lam32) + p1 * lam32
-                conf_mix = (p0.amax(dim=-1, keepdim=True) * (1 - lam32)
-                            + p1.amax(dim=-1, keepdim=True) * lam32)
-                conf_px = confidence_px(cfg, conf_mix)
+        def one_chunk(c):
+            conf_px = per_px_fn = None
+            if use_cons:
+                with torch.no_grad():
+                    tea0, tea1 = (t.float() for t in teacher_pair(
+                        cfg, teacher, c["ux0_tea"], c["ux1_tea"]))
+                    p0, p1 = F.softmax(tea0, dim=-1), F.softmax(tea1, dim=-1)
+                    lam32 = c["lam"]
+                    logits_tea_mix = tea0 * (1 - lam32) + tea1 * lam32
+                    prob_tea_mix = p0 * (1 - lam32) + p1 * lam32
+                    conf_mix = (p0.amax(dim=-1, keepdim=True) * (1 - lam32)
+                                + p1.amax(dim=-1, keepdim=True) * lam32)
+                    conf_px = confidence_px(cfg, conf_mix)
 
-            def per_px_fn(logits_stu):
-                return L.consistency_from_prob_targets(
-                    cfg.cons_loss_fn, logits_stu.float(), logits_tea_mix, prob_tea_mix)
+                def per_px_fn(logits_stu):
+                    return L.consistency_from_prob_targets(
+                        cfg.cons_loss_fn, logits_stu.float(), logits_tea_mix, prob_tea_mix)
 
-        metrics = student_backward(cfg, state.student, batch, x_mixed, per_px_fn, um_mixed,
-                                   conf_px, ramp)
+            return student_backward(cfg, state.student, c, c.get("x_mixed"), per_px_fn,
+                                    c.get("um_mixed"), conf_px, ramp)
+
+        metrics = accumulate(cfg.grad_accum, state.student, full, one_chunk)
         return finish_step(state, opt, cfg), metrics
 
     return step

@@ -1,5 +1,5 @@
 """CutMix / Cutout mean-teacher train step (port of
-cutmix_seg_tpu.semisup.mask_mt, grad_accum == 1).
+cutmix_seg_tpu.semisup.mask_mt).
 
 One step, in the JAX step's order:
   1. box rects sampled on the device from the state's generator (or
@@ -15,6 +15,12 @@ One step, in the JAX step's order:
      with training BN);
   7. loss = CE(ignore) + cons_sum * ramp * cons_weight;
   8. the optimiser step, then the EMA teacher update.
+
+With ``grad_accum`` K > 1, steps 1-2 run once over the whole batch (one
+kernel launch per step, so the boxes do not depend on K) and steps 3-7 once
+per strided chunk (``stepcore.accumulate``); the bf16 and remat loss-chain
+options are refused there, as the JAX step refuses them, so the chunks'
+teacher logits and softmax chains are float32.
 
 Metrics stay device tensors (nothing here waits for the device).
 """
@@ -37,13 +43,14 @@ from cutmix_seg_tpu_torch.ops.cutmix import cutmix_blend
 from cutmix_seg_tpu_torch.semisup import losses as L
 from cutmix_seg_tpu_torch.semisup.stepcore import (
     ConsistencyCommon,
+    accumulate,
     confidence_px,
     finish_step,
     prepare_nets,
-    refuse_unported,
     student_backward,
     teacher_forward,
     teacher_pair,
+    validate_accum,
 )
 
 __all__ = ["MaskConsistencyConfig", "make_mask_mt_step"]
@@ -103,43 +110,66 @@ def make_mask_mt_step(model, opt, cfg: MaskConsistencyConfig):
     Returns ``step(state, batch, ramp, rects=None) -> (state, metrics)``;
     ``rects`` (N, n_boxes, 4) float32 replaces the sampled boxes.
     """
-    refuse_unported(cfg)
     if cfg.mask_mode not in ("mix", "zero"):
         raise ValueError(f"unknown mask_mode {cfg.mask_mode!r}")
+    K = cfg.grad_accum
+    if K > 1:
+        # the chunks' loss chains are float32 and not recomputed
+        if (cfg.cons_compute_dtype != "float32" or cfg.remat_loss_chain
+                or cfg.loss_softmax_dtype != "float32"):
+            raise ValueError(
+                "cons_compute_dtype='bfloat16' / remat_loss_chain / "
+                "loss_softmax_dtype='bfloat16' are not supported with "
+                "grad_accum > 1")
+        validate_accum(cfg, "mask_mt")
     use_cons = cfg.cons_weight > 0.0
     ldt = _DTYPES[cfg.cons_compute_dtype]
     sdt = _DTYPES[cfg.loss_softmax_dtype]
+    tea_keys = ("ux0_tea", "ux1_tea") if cfg.mask_mode == "mix" else ("ux_tea",)
 
     def step(state: TrainState, batch, ramp, rects=None):
         teacher = prepare_nets(cfg, state)
-        x_stu_cons = loss_mask = conf_px = per_px_fn = None
-
-        # ---- mixing geometry + teacher: all outside the gradient ----
+        full = {"sup_x": batch["sup_x"], "sup_y": batch["sup_y"]}
+        # ---- mixing geometry over the whole batch, outside the gradient ----
         if use_cons:
             with torch.no_grad():
-                x_stu_cons, m, loss_mask = _mix_geometry(
-                    cfg, batch, state.generator, rects)
-                if cfg.mask_mode == "mix":
-                    tea0, tea1 = teacher_pair(cfg, teacher, batch["ux0_tea"], batch["ux1_tea"])
-                    m_l = m.to(ldt)
-                    logits_tea = tea0.to(ldt) * (1.0 - m_l) + tea1.to(ldt) * m_l
-                else:
-                    logits_tea = teacher_forward(cfg, teacher, batch["ux_tea"]).to(ldt)
-                # only the (.., 1) max-prob map is kept; the gate compares f32
-                conf = F.softmax(logits_tea.to(sdt), dim=-1).amax(
-                    dim=-1, keepdim=True).float()
-                conf_px = confidence_px(cfg, conf)
-                loss_mask = loss_mask.float()
+                x_stu_cons, m, loss_mask = _mix_geometry(cfg, batch, state.generator, rects)
+            if K > 1 and batch["sup_x"].shape[1:] != x_stu_cons.shape[1:]:
+                raise ValueError(
+                    "grad_accum > 1 requires matching supervised/"
+                    f"unsupervised crop shapes, got {tuple(batch['sup_x'].shape[1:])}"
+                    f" vs {tuple(x_stu_cons.shape[1:])}")
+            full.update({k: batch[k] for k in tea_keys})
+            full.update(x_cons=x_stu_cons, m=m, loss_mask=loss_mask.float())
 
-            def per_px_fn(logits_stu):
-                return _tail(cfg, L.consistency_loss_per_pixel, cfg.cons_loss_fn,
-                             logits_stu, logits_tea, sdt)
+        def one_chunk(c):
+            # ---- teacher: all outside the gradient ----
+            conf_px = per_px_fn = None
+            if use_cons:
+                with torch.no_grad():
+                    if cfg.mask_mode == "mix":
+                        tea0, tea1 = teacher_pair(cfg, teacher, c["ux0_tea"], c["ux1_tea"])
+                        m_l = c["m"].to(ldt)
+                        logits_tea = tea0.to(ldt) * (1.0 - m_l) + tea1.to(ldt) * m_l
+                    else:
+                        logits_tea = teacher_forward(cfg, teacher, c["ux_tea"]).to(ldt)
+                    # only the (.., 1) max-prob map is kept; the gate compares f32
+                    conf = F.softmax(logits_tea.to(sdt), dim=-1).amax(
+                        dim=-1, keepdim=True).float()
+                    conf_px = confidence_px(cfg, conf)
 
-        # ---- student losses under the gradient ----
-        metrics = student_backward(
-            cfg, state.student, batch, x_stu_cons, per_px_fn, loss_mask, conf_px, ramp,
-            sup_loss_fn=lambda logits, y: _tail(cfg, L.cross_entropy_ignore, logits, y,
-                                                cfg.ignore_value, sdt))
+                def per_px_fn(logits_stu):
+                    return _tail(cfg, L.consistency_loss_per_pixel, cfg.cons_loss_fn,
+                                 logits_stu, logits_tea, sdt)
+
+            # ---- student losses under the gradient ----
+            return student_backward(
+                cfg, state.student, c, c.get("x_cons"), per_px_fn, c.get("loss_mask"),
+                conf_px, ramp,
+                sup_loss_fn=lambda logits, y: _tail(cfg, L.cross_entropy_ignore, logits, y,
+                                                    cfg.ignore_value, sdt))
+
+        metrics = accumulate(K, state.student, full, one_chunk)
         return finish_step(state, opt, cfg), metrics
 
     return step

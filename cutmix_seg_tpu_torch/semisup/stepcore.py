@@ -1,8 +1,18 @@
 """Pieces shared by the semi-supervised train steps (port of
 cutmix_seg_tpu.semisup.stepcore): the common options, confidence gating, the
 masked per-sub-batch consistency reduction, the nets' mode for a step, the
-teacher's forwards, the student's forward/backward and the end of a step
-(optimiser update, EMA teacher update, step advance).
+teacher's forwards, the student's forward/backward, gradient accumulation
+and the end of a step (optimiser update, EMA teacher update, step advance).
+
+Gradient accumulation (``grad_accum`` K > 1): every draw of a step (boxes,
+lambdas, noise) is made for the whole batch first, then the batch runs as K
+strided chunks (chunk k is ``x[k::K]``), each through the teacher's forwards
+and the student's forward/backward in turn, where the JAX step runs one
+``lax.scan`` body per chunk. ``.grad`` sums the chunks' gradients, divided by
+K once after the last chunk (the JAX step's ``sum / K``); the metrics are
+the chunks' means. BN running statistics thread from chunk to chunk in the
+modules' buffers, one forward after the other, as they do through the JAX
+scan carry.
 
 BN and dropout follow the JAX steps: every forward but VAT's direction net
 runs in train mode, so dropout draws masks (from the state's generator) in
@@ -16,7 +26,8 @@ student's own forward, whose updated statistics the JAX step discards.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+import warnings
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -78,10 +89,55 @@ def confidence_px(cfg: ConsistencyCommon, conf_tea: torch.Tensor):
     return None
 
 
-def refuse_unported(cfg: ConsistencyCommon) -> None:
-    """Raise for the step options the port does not run yet."""
-    if cfg.grad_accum > 1:
-        raise NotImplementedError("grad_accum > 1 is not ported yet (ROADMAP A2)")
+def validate_accum(cfg: ConsistencyCommon, algo: str) -> None:
+    """The grad_accum > 1 preconditions every algorithm shares."""
+    if cfg.unsup_batch_ratio != 1:
+        raise ValueError(
+            f"{algo}: grad_accum > 1 requires unsup_batch_ratio == 1 "
+            "(chunking must not cut across unsupervised sub-batches)")
+    if cfg.conf_thresh > 0.0 and not cfg.conf_per_pixel and cfg.cons_weight > 0.0:
+        warnings.warn(
+            f"{algo}: grad_accum > 1 with the batch-mean confidence gate "
+            "(conf_per_pixel=False): each micro-chunk is gated by its own "
+            "mean confidence rather than the full batch's, so the gradient "
+            "is the standard accumulation average, not bit-equal to "
+            "grad_accum=1. Pass conf_per_pixel=True for exact chunk "
+            "decomposition.", stacklevel=4)
+
+
+def chunk_strided(x: torch.Tensor, K: int) -> List[torch.Tensor]:
+    """The K strided chunks of x's leading axis: chunk k is ``x[k::K]``."""
+    if x.shape[0] % K != 0:
+        raise ValueError(f"batch size {x.shape[0]} not divisible by grad_accum={K}")
+    return [x[k::K] for k in range(K)]
+
+
+def accumulate(K: int, student: torch.nn.Module, batch: Dict[str, torch.Tensor],
+               one_chunk: Callable[[Dict[str, torch.Tensor]], dict]) -> dict:
+    """Run ``one_chunk`` on each of the K strided chunks of ``batch`` (a dict
+    of tensors with a common leading axis), in chunk order. Each call leaves
+    its chunk's gradients added into the student's ``.grad`` and returns its
+    metrics; the summed gradients are divided by K once, and the metrics
+    are their means over the chunks. K == 1 runs ``one_chunk(batch)``."""
+    if K == 1:
+        return one_chunk(batch)
+    per_key = {k: chunk_strided(v, K) for k, v in batch.items()}
+    total = None
+    for i in range(K):
+        m = one_chunk({k: v[i] for k, v in per_key.items()})
+        total = m if total is None else {k: total[k] + v for k, v in m.items()}
+    with torch.no_grad():
+        for p in student.parameters():
+            if p.grad is not None:
+                p.grad.div_(K)
+    return {k: v / K for k, v in total.items()}
+
+
+def accum_zero_metrics(use_cons: bool, device=None) -> Dict[str, torch.Tensor]:
+    """Zero metric sums of a step's keys: sup_loss, and cons_loss and
+    conf_rate with the consistency term."""
+    keys = ["sup_loss"] + (["cons_loss", "conf_rate"] if use_cons else [])
+    return {k: torch.zeros((), dtype=torch.float32, device=device) for k in keys}
 
 
 def prepare_nets(cfg: ConsistencyCommon, state: TrainState) -> torch.nn.Module:

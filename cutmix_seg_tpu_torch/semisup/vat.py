@@ -1,5 +1,5 @@
 """VAT (Virtual Adversarial Training) mean-teacher step (port of
-cutmix_seg_tpu.semisup.vat, grad_accum == 1).
+cutmix_seg_tpu.semisup.vat).
 
 One step, in the JAX step's order:
   1. the direction net (the teacher, or the student under
@@ -19,10 +19,21 @@ One step, in the JAX step's order:
      with training BN): CE(ignore) +
      cons_sum * ramp * cons_weight, the standard loss menu;
   8. the optimiser step, then the EMA teacher update.
+
+With ``grad_accum`` K > 1, the noise of 2 is drawn once for the whole batch
+(it does not depend on K) and steps 1 and 3-7 run once per strided chunk
+(``stepcore.accumulate``). The direction net of chunk k reads the running
+statistics its net holds after chunks 0 .. k-1, as the JAX scan carry gives
+them: the teacher's after their teacher forwards, or the student's after
+their student forwards (``vat_dir_from_student``). In pi-model mode with
+training BN the teacher's statistics are a carry of their own, started from
+the student's and updated by the teacher forwards only, which the step
+discards at its end (``_PiTeacherStats``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional
@@ -34,12 +45,13 @@ from cutmix_seg_tpu_torch.core.train_state import TrainState
 from cutmix_seg_tpu_torch.semisup import losses as L
 from cutmix_seg_tpu_torch.semisup.stepcore import (
     ConsistencyCommon,
+    accumulate,
     confidence_px,
     finish_step,
     prepare_nets,
-    refuse_unported,
     student_backward,
     teacher_forward,
+    validate_accum,
 )
 
 __all__ = ["VATConfig", "make_vat_step"]
@@ -105,6 +117,28 @@ def adversarial_input(cfg: VATConfig, dir_net: torch.nn.Module, x_tea: torch.Ten
         return x_stu + direction * radius
 
 
+class _PiTeacherStats:
+    """The pi-model teacher's running statistics under training BN with
+    grad_accum > 1: a copy of the student's at the step's start, swapped into
+    the student net for the teacher side of each chunk (direction net and
+    teacher forward, which updates it) and out again for the student's
+    forward/backward."""
+
+    def __init__(self, net: torch.nn.Module):
+        self.bufs = [b for name, b in net.named_buffers() if "running" in name]
+        self.carry = [b.clone() for b in self.bufs]
+
+    def __enter__(self):
+        self.saved = [b.clone() for b in self.bufs]
+        for b, c in zip(self.bufs, self.carry):
+            b.copy_(c)
+
+    def __exit__(self, *exc):
+        for b, c, s in zip(self.bufs, self.carry, self.saved):
+            c.copy_(b)
+            b.copy_(s)
+
+
 def make_vat_step(model, opt, cfg: VATConfig):
     """Build the step function.
 
@@ -115,31 +149,50 @@ def make_vat_step(model, opt, cfg: VATConfig):
     ``eps0`` (the shape of ``ux_stu``, float32, normalised and scaled)
     replaces the sampled noise.
     """
-    refuse_unported(cfg)
+    K = cfg.grad_accum
+    if K > 1:
+        validate_accum(cfg, "vat_mt")
     use_cons = cfg.cons_weight > 0.0
+    pi_carry = (K > 1 and not cfg.mean_teacher and not cfg.freeze_bn
+                and not cfg.vat_dir_from_student)
 
     def step(state: TrainState, batch, ramp, eps0: Optional[torch.Tensor] = None):
         teacher = prepare_nets(cfg, state)
-        x_adv = conf_px = per_px_fn = None
+        full = {"sup_x": batch["sup_x"], "sup_y": batch["sup_y"]}
         if use_cons:
-            x_tea, x_stu = batch["ux_tea"], batch["ux_stu"]
+            x_stu = batch["ux_stu"]
             h, w = x_stu.shape[1:3]
             if eps0 is None:
                 noise = torch.randn(x_stu.shape, generator=state.generator,
                                     device=x_stu.device)
                 eps0 = _normalize_per_sample(noise) * (1.0e-6 * h * w / 1000.0)
-            dir_net = state.student if cfg.vat_dir_from_student else teacher
-            x_adv = adversarial_input(cfg, dir_net, x_tea, x_stu, eps0)
-            logits_tea = teacher_forward(cfg, teacher, x_tea).float()
-            with torch.no_grad():
-                conf_px = confidence_px(
-                    cfg, F.softmax(logits_tea, dim=-1).amax(dim=-1, keepdim=True))
+            full.update(ux_tea=batch["ux_tea"], ux_stu=x_stu, um=batch["um"].float(),
+                        eps0=eps0)
+        tea_stats = _PiTeacherStats(teacher) if use_cons and pi_carry else None
 
-            def per_px_fn(logits_stu):
-                return L.consistency_loss_per_pixel(cfg.cons_loss_fn, logits_stu, logits_tea)
+        def one_chunk(c):
+            x_adv = conf_px = per_px_fn = None
+            if use_cons:
+                with tea_stats or contextlib.nullcontext():
+                    dir_net = state.student if cfg.vat_dir_from_student else teacher
+                    x_adv = adversarial_input(cfg, dir_net, c["ux_tea"], c["ux_stu"], c["eps0"])
+                    if tea_stats is None:
+                        logits_tea = teacher_forward(cfg, teacher, c["ux_tea"]).float()
+                    else:  # the pi carry's own statistics update
+                        with torch.no_grad():
+                            logits_tea = teacher(c["ux_tea"]).float()
+                with torch.no_grad():
+                    conf_px = confidence_px(
+                        cfg, F.softmax(logits_tea, dim=-1).amax(dim=-1, keepdim=True))
 
-        metrics = student_backward(cfg, state.student, batch, x_adv, per_px_fn,
-                                   batch["um"].float() if use_cons else None, conf_px, ramp)
+                def per_px_fn(logits_stu):
+                    return L.consistency_loss_per_pixel(cfg.cons_loss_fn, logits_stu,
+                                                        logits_tea)
+
+            return student_backward(cfg, state.student, c, x_adv, per_px_fn, c.get("um"),
+                                    conf_px, ramp)
+
+        metrics = accumulate(K, state.student, full, one_chunk)
         return finish_step(state, opt, cfg), metrics
 
     return step

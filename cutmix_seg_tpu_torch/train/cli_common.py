@@ -93,17 +93,19 @@ def common_options(with_geom_pair_opts: bool = False):
                           "refused at setup"),
         click.option("--data_on_device", type=click.Choice(
             ["auto", "on", "off"]), default="auto",
-            help="JAX-package extra (training canvases resident in device "
-                 "memory); not ported yet: 'on' is refused at setup, 'auto' "
-                 "and 'off' stream from the host (the same samples and "
-                 "geometry)"),
+            help="JAX-package extra: keep the training canvases in device "
+                 "memory and ship only indices and matrices each iteration. "
+                 "'on' stages them, 'off' streams them from the host, 'auto' "
+                 "stages them when they fit in 1 GiB (the same samples and "
+                 "geometry either way)"),
         click.option("--no_pretrained", is_flag=True, default=False,
                      help="skip loading pretrained backbone weights (random "
                           "init; for machines without the weight files)"),
         click.option("--grad_accum", type=int, default=1,
-                     help="JAX-package extra (the batch as K sequential "
-                          "micro-chunks, one optimiser/EMA update); not "
-                          "ported yet: K > 1 is refused at setup"),
+                     help="JAX-package extra: the batch as K sequential "
+                          "strided micro-chunks, one optimiser/EMA update "
+                          "(lower peak activation memory; with training BN "
+                          "the statistics update per chunk)"),
     ]
     if with_geom_pair_opts:
         opts += [

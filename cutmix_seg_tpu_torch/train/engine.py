@@ -9,7 +9,9 @@ train_seg_semisup_mask_mt.py:64-577). Each trainer supplies an
 from the host streams.
 
 Each iteration runs, in order: the copy of the uint8 canvases and matrices
-to the device, the device augmentation (``augmentor.sup`` and the
+to the device (with the device-resident store, ``--data_on_device``, only
+row indices, sizes and matrices, and the canvases are gathered from the
+store on the device), the device augmentation (``augmentor.sup`` and the
 algorithm's ``compose``), and the step. The JAX package traces the three into
 one program; here they are eager calls on the device's stream. Metric sums
 stay on the device and are fetched once per epoch (and every
@@ -40,12 +42,13 @@ from cutmix_seg_tpu_torch.core import checkpoint as ckpt
 from cutmix_seg_tpu_torch.core import job
 from cutmix_seg_tpu_torch.core.train_state import create_train_state
 from cutmix_seg_tpu_torch.data import datasets
+from cutmix_seg_tpu_torch.data import resident as res_mod
 from cutmix_seg_tpu_torch.data.loader import HostBatchBuilder, eval_batches, train_stream
 from cutmix_seg_tpu_torch.eval.evaluator import predict
 from cutmix_seg_tpu_torch.models import registry
 from cutmix_seg_tpu_torch.ops.colour import ColourJitterConfig
 from cutmix_seg_tpu_torch.ops.iou import EvaluatorIoU
-from cutmix_seg_tpu_torch.semisup.stepcore import ConsistencyCommon
+from cutmix_seg_tpu_torch.semisup.stepcore import ConsistencyCommon, accum_zero_metrics
 from cutmix_seg_tpu_torch.train import common
 from cutmix_seg_tpu_torch.utils.device import resolve_device
 from cutmix_seg_tpu_torch.utils.rampup import sigmoid_rampup
@@ -77,16 +80,12 @@ def check_ported(p: dict) -> None:
     (each names its ROADMAP item)."""
     registry.get(p["arch"])  # an unknown name raises KeyError
     refused = []
-    if p.get("grad_accum", 1) > 1:
-        refused.append(f"--grad_accum {p['grad_accum']} is ROADMAP A2")
     if p.get("n_devices", -1) not in (-1, 1):
         refused.append(f"--n_devices {p['n_devices']} (one GPU only) is ROADMAP A6")
     if p.get("eval_spatial", False):
         refused.append("--eval_spatial is ROADMAP A6")
     if int(p.get("spatial_train", 1) or 1) > 1:
         refused.append(f"--spatial_train {p['spatial_train']} is ROADMAP A6")
-    if p.get("data_on_device", "auto") == "on":
-        refused.append("--data_on_device on (data/resident.py) is ROADMAP A10")
     if refused:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(refused))
@@ -110,9 +109,6 @@ class TrainEngine:
             # the crop and eval shapes are fixed: cuDNN picks its algorithms
             # once per shape
             torch.backends.cudnn.benchmark = True
-        if p.get("data_on_device", "auto") == "auto":
-            print("Data on device: the port streams from the host "
-                  "(data/resident.py is ROADMAP A10)")
         self.crop_hw = common.parse_crop_size(p["crop_size"])
         if self.crop_hw is None:
             raise ValueError("the pipeline requires a crop_size (static shapes)")
@@ -190,11 +186,13 @@ class TrainEngine:
         self.step = self.spec.make_step(self.model, self.opt)
 
         self.use_cons = self.algo_cfg.cons_weight > 0.0
+        self._setup_resident(p)
         self._sup_builder = HostBatchBuilder(
-            self.ds, self.geom, with_labels=True, n_threads=p["num_workers"])
+            self.ds, self.geom, with_labels=True, n_threads=p["num_workers"],
+            resident=self.resident)
         self._unsup_builder = (HostBatchBuilder(
             self.ds, self.geom, with_labels=False, pair_geom=self.spec.pair_geom,
-            n_threads=p["num_workers"])
+            n_threads=p["num_workers"], resident=self.resident)
             if self.use_cons else None)
         self._seed = p.get("seed", 0)
         # streams are (re)opened per epoch with epoch-folded seeds
@@ -212,6 +210,26 @@ class TrainEngine:
         if p["n_sup"] != -1:
             print(f"sup_ndx={self.sup_ndx.tolist()}")
         return True
+
+    def _setup_resident(self, p):
+        """Stage the training canvases in device memory (data/resident.py):
+        'off' streams them from the host, 'on' stages them, 'auto' stages
+        them when they fit in ``resident.DEFAULT_MAX_BYTES``, as the JAX
+        trainer decides."""
+        self.resident = None
+        mode = p.get("data_on_device", "auto")
+        if mode not in ("auto", "on", "off"):
+            raise ValueError(f"--data_on_device must be auto/on/off, got {mode}")
+        if mode == "off":
+            return
+        need = (np.unique(np.concatenate([self.sup_ndx, self.unsup_ndx]))
+                if self.use_cons else np.unique(self.sup_ndx))
+        nbytes = res_mod.resident_nbytes(self.ds, len(need), True)
+        if mode == "auto" and nbytes > res_mod.DEFAULT_MAX_BYTES:
+            return
+        self.resident = res_mod.ResidentDataset(self.ds, need, self.device, with_labels=True)
+        print(f"Data on device: {len(need)} canvases "
+              f"({nbytes / 1e6:.0f} MB) staged in HBM")
 
     def _open_epoch_streams(self, epoch_i: int):
         """(Re)open the host input streams and the colour generator with
@@ -241,8 +259,9 @@ class TrainEngine:
 
     # ---- batches ----
     def make_raw_batch(self):
-        """Host work, then the copy: pull decoded canvases and matrices off
-        the streams and place them on the device."""
+        """Host work, then the copy: pull decoded canvases and matrices (or,
+        from the resident store, row indices and matrices) off the streams
+        and place them on the device."""
         with record_function("trainer.fetch"):
             raw = {"sup": next(self.sup_stream)}
             if self.use_cons:
@@ -253,6 +272,9 @@ class TrainEngine:
     def make_batch(self, raw):
         """The step's batch from a raw batch on the device."""
         with record_function("trainer.augment"):
+            if self.resident is not None:
+                raw = {k: res_mod.gather_part(self.resident.data, v, with_labels=(k == "sup"))
+                       for k, v in raw.items()}
             sup = self.augmentor.sup(raw["sup"])
             batch = {"sup_x": sup["image"], "sup_y": sup["labels"]}
             if self.use_cons:
@@ -304,7 +326,7 @@ class TrainEngine:
             self._open_epoch_streams(epoch_i)
             ramp = sigmoid_rampup(epoch_i, p["rampup"]) if p["rampup"] > 0 else 1.0
 
-            msum = None
+            msum = accum_zero_metrics(self.use_cons, self.device)
             n_steps = 0
             profile_dir = p.get("profile_dir") if epoch_i == self.start_epoch else None
             prof = None
@@ -326,7 +348,7 @@ class TrainEngine:
                 batch = self.make_batch(self.make_raw_batch())
                 with record_function("trainer.step"):
                     self.state, metrics = self.step(self.state, batch, ramp)
-                msum = metrics if msum is None else {k: msum[k] + v for k, v in metrics.items()}
+                msum = {k: msum[k] + v for k, v in metrics.items()}
                 n_steps += 1
                 if prof is not None and (it >= 4 or it == p["iters_per_epoch"] - 1):
                     _stop_profile(prof, self.device, profile_dir)
@@ -337,7 +359,7 @@ class TrainEngine:
                         return
 
             # one fetch of the metric sums per epoch
-            m = {k: float(v) / max(n_steps, 1) for k, v in (msum or {}).items()}
+            m = {k: float(v) / max(n_steps, 1) for k, v in msum.items()}
             t_train = time.time() - t1
             sup_loss_acc = m.get("sup_loss", 0.0)
             cons_loss_acc = m.get("cons_loss", 0.0)

@@ -345,15 +345,6 @@ def test_supervised_only_when_cons_weight_is_zero(algo):
     assert torch.equal(state.generator.get_state(), g0)
 
 
-@pytest.mark.parametrize("algo", sorted(ALGOS))
-@pytest.mark.parametrize("kw", [dict(grad_accum=2)])
-def test_unported_options_raise(algo, kw):
-    cfg_cls, make = ALGOS[algo][2:]
-    model, state, opt = _tiny_state()
-    with pytest.raises(NotImplementedError):
-        make(model, opt, cfg_cls(**kw))
-
-
 def test_vat_smoothl1_direction_raises():
     """The power step has no logits_smoothl1 loss (nor has JAX's)."""
     model, state, opt = _tiny_state()

@@ -57,7 +57,8 @@ def test_every_module_imports_on_cpu():
     for mod in ("semisup.mask_mt", "semisup.ict", "semisup.vat", "semisup.aug_cons",
                 "ops.resample", "train.ict", "train.vat_mt", "train.aug_mt",
                 "tools.synthetic_benchmark", "models.denseunet", "models.resunet",
-                "models.deeplab3", "models.pspnet"):
+                "models.deeplab3", "models.pspnet", "data.resident", "tools.convert_cityscapes",
+                "tools.convert_isic", "tools.download_pascal_aug_names"):
         assert f"cutmix_seg_tpu_torch.{mod}" in names, mod
     for name in names:
         importlib.import_module(name)

@@ -127,26 +127,27 @@ LR = 3e-4
 N, HW, C = 2, (33, 33), 4
 
 
-def _batch(mode, seed=0):
+def _batch(mode, seed=0, ratio=1):
     rng = np.random.RandomState(seed)
     h, w = HW
+    nu = N * ratio
     labels = rng.randint(0, C, size=(N, h, w)).astype(np.int32)
     labels[rng.rand(N, h, w) < 0.1] = 255
     b = {"sup_x": rng.randn(N, h, w, 3).astype(np.float32), "sup_y": labels}
     keys = ("ux0", "ux1") if mode == "mix" else ("ux",)
     for k in keys:
-        b[f"{k}_tea"] = b[f"{k}_stu"] = rng.randn(N, h, w, 3).astype(np.float32)
+        b[f"{k}_tea"] = b[f"{k}_stu"] = rng.randn(nu, h, w, 3).astype(np.float32)
     for k in (("um0", "um1") if mode == "mix" else ("um",)):
-        b[k] = (rng.rand(N, h, w, 1) > 0.2).astype(np.float32)
+        b[k] = (rng.rand(nu, h, w, 1) > 0.2).astype(np.float32)
     return b
 
 
-def _cfg_kw(mode, mean_teacher):
-    return dict(mask_mode=mode, cons_weight=1.0, conf_thresh=0.34, conf_per_pixel=False,
-                freeze_bn=True, mean_teacher=mean_teacher, teacher_alpha=0.99)
+def _cfg_kw(mode, mean_teacher, **extra):
+    return dict(dict(mask_mode=mode, cons_weight=1.0, conf_thresh=0.34, conf_per_pixel=False,
+                     freeze_bn=True, mean_teacher=mean_teacher, teacher_alpha=0.99), **extra)
 
 
-def _setup(mode, mean_teacher):
+def _setup(mode, mean_teacher, n_boxes=1, **extra):
     jmodel = JSegModel(name="tiny", module=JDeepLab2(num_classes=C, layers=(1, 1, 1, 1)),
                        mean=np.zeros(3), std=np.ones(3), block_size=(1, 1),
                        param_label=j_param_label)
@@ -157,7 +158,8 @@ def _setup(mode, mean_teacher):
     student = jts.ModelState(params=variables["params"], batch_stats=variables["batch_stats"])
     teacher = student if mean_teacher else jstate.teacher
     jstate = jstate.replace(student=student, teacher=teacher)
-    jcfg = jmm.MaskConsistencyConfig(box=JBoxMaskConfig((0.5, 0.5)), **_cfg_kw(mode, mean_teacher))
+    jcfg = jmm.MaskConsistencyConfig(box=JBoxMaskConfig((0.5, 0.5), n_boxes=n_boxes),
+                                     **_cfg_kw(mode, mean_teacher, **extra))
     jstep = jax.jit(jmm.make_mask_mt_step(jmodel, tx, jcfg))
 
     tmodel = SegModel("tiny", DeepLab2(C, layers=(1, 1, 1, 1)), np.zeros(3), np.ones(3),
@@ -169,7 +171,8 @@ def _setup(mode, mean_teacher):
     tstate.student.load_state_dict(sd)
     if mean_teacher:
         tstate.teacher.load_state_dict(sd)
-    tcfg = tmm.MaskConsistencyConfig(box=BoxMaskConfig((0.5, 0.5)), **_cfg_kw(mode, mean_teacher))
+    tcfg = tmm.MaskConsistencyConfig(box=BoxMaskConfig((0.5, 0.5), n_boxes=n_boxes),
+                                     **_cfg_kw(mode, mean_teacher, **extra))
     tstep = tmm.make_mask_mt_step(tmodel, opt, tcfg)
     return jstate, jstep, jcfg, tstate, tstep
 
@@ -225,6 +228,59 @@ def test_mask_mt_step_matches_jax(mode, mean_teacher):
         assert tstate.teacher is None
 
 
+# options the parity test above fixes: name -> (mask_mode, config kwargs)
+OPTION_CASES = {
+    "ratio2_mix": ("mix", dict(unsup_batch_ratio=2)),
+    "ratio2_zero": ("zero", dict(unsup_batch_ratio=2)),
+    "conf_per_pixel": ("mix", dict(conf_per_pixel=True)),
+    "bce": ("mix", dict(cons_loss_fn="bce")),
+    "kld": ("mix", dict(cons_loss_fn="kld")),
+    "logits_var": ("mix", dict(cons_loss_fn="logits_var")),
+    "logits_smoothl1": ("mix", dict(cons_loss_fn="logits_smoothl1")),
+    "n_boxes3": ("mix", dict(n_boxes=3)),
+    "conf_thresh0": ("mix", dict(conf_thresh=0.0)),
+    "cons_weight0": ("mix", dict(cons_weight=0.0)),
+    # Cutout at R = 2: at a 0.34 gate one pixel's confidence lies within
+    # rounding of the threshold and flips; 0.3 and 0.5 hold
+    "cutout_ratio2_gate0.3": ("zero", dict(unsup_batch_ratio=2, conf_thresh=0.3)),
+    "cutout_ratio2_gate0.5": ("zero", dict(unsup_batch_ratio=2, conf_thresh=0.5)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(OPTION_CASES))
+def test_mask_mt_step_options_match_jax(case):
+    """The mask_mt step under one more option each, 3 steps against
+    jax.jit of the JAX step: losses within rtol 1e-5, conf_rate within two
+    flipped pixels, parameters as _close_params holds them."""
+    mode, kw = OPTION_CASES[case]
+    kw = dict(kw)
+    ratio = kw.get("unsup_batch_ratio", 1)
+    jstate, jstep, jcfg, tstate, tstep = _setup(mode, True, **kw)
+    nb = _batch(mode, ratio=ratio)
+    jbatch = {k: jnp.asarray(v) for k, v in nb.items()}
+    tbatch = {k: torch.from_numpy(v) for k, v in nb.items()}
+    tbatch["sup_y"] = tbatch["sup_y"].long()
+    n_unsup = N * ratio
+    one_gate = 1.0 / (n_unsup * HW[0] * HW[1])
+    for i in range(3):
+        k_mask = jax.random.split(jstate.rng, 5)[1]
+        rects = np.array(jax_sample_box_rects(jcfg.box, k_mask, n_unsup, HW))
+        jstate, jm = jstep(jstate, jbatch, jnp.float32(1.0))
+        tstate, tm = tstep(tstate, tbatch, 1.0, rects=torch.from_numpy(rects))
+        assert sorted(tm) == sorted(jm)
+        for k in ("sup_loss", "cons_loss"):
+            if k in jm:
+                np.testing.assert_allclose(tm[k].item(), float(jm[k]), rtol=1e-5, atol=1e-7,
+                                           err_msg=f"step {i} {k}")
+        if "conf_rate" in jm:
+            assert abs(tm["conf_rate"].item() - float(jm["conf_rate"])) <= 2 * one_gate + 1e-7
+    assert tstate.step == int(jstate.step) == 3
+    _close_params(tstate.student, jstate.student.params, jstate.student.batch_stats, 3,
+                  "student")
+    _close_params(tstate.teacher, jstate.teacher.params, jstate.teacher.batch_stats, 3,
+                  "teacher")
+
+
 def _tiny_state():
     model = SegModel("tiny", DeepLab2(C, layers=(1, 1, 1, 1)), np.zeros(3), np.ones(3),
                      (1, 1), _param_label)
@@ -268,7 +324,7 @@ def test_sampled_rects_drive_the_step():
     assert all(torch.isfinite(v) for v in out[0].values())
 
 
-@pytest.mark.parametrize("kw", [dict(grad_accum=2), dict(mask_mode="blend")])
+@pytest.mark.parametrize("kw", [dict(mask_mode="blend")])
 def test_unported_options_raise(kw):
     model, state, opt = _tiny_state()
     with pytest.raises((NotImplementedError, ValueError)):

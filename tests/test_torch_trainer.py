@@ -136,11 +136,9 @@ def test_checkpoint_restores_the_saved_state(voc, tmp_path):
 
 
 REFUSED = {  # case: (overrides, the exception, its message)
-    "grad_accum": (dict(grad_accum=2), NotImplementedError, "ROADMAP A2"),
     "n_devices": (dict(n_devices=2), NotImplementedError, "ROADMAP A6"),
     "eval_spatial": (dict(eval_spatial=True), NotImplementedError, "ROADMAP A6"),
     "spatial_train": (dict(spatial_train=2), NotImplementedError, "ROADMAP A6"),
-    "data_on_device_on": (dict(data_on_device="on"), NotImplementedError, "ROADMAP A10"),
     # every JAX --arch is in the port: a name in neither registry
     "arch_not_ported": (dict(arch="resnet18_fcn"), KeyError, "unknown architecture"),
 }
