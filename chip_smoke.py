@@ -79,9 +79,26 @@ Phases, in order; any failure exits non-zero before the result lines:
      copy and augmentation times of each, and the off line's ms/iteration
      beside phase 6c's resident run; the phase-6 Pascal CutMix line with
      --data_on_device on;
-  7. the kernel summary line and, last, the device line.
+  7. data parallelism and the multi-seed trainer: 7a the phase-6 CutMix line
+     (1 epoch x 5 iterations) through job.submit under a process group made
+     from torchrun's variables, NCCL at world 1 in this process (world 2,
+     one card per rank, where the host has two cards): a finite epoch line
+     and a VAL mIoU, one kernel launch per iteration, rank 0's checkpoint,
+     ms/iteration beside phase 6's; 7b two rank processes sharing the card
+     over gloo (NCCL refuses two ranks on one device): the tiny DeepLab v2
+     (CutMix, frozen BN) and the tiny ResUNet (CutMix, training BN,
+     host-drawn dropout masks) for two steps at 2 + 2, injected global
+     rects, against one process on the card over the global batch: the ranks
+     bit-identical, within phase 3b's bounds of the one-process run, one
+     launch per rank per step; 7c the multi-seed trainer with two seeds on
+     that CutMix line (1 epoch x 5 iterations): both seeds' epoch lines and
+     the aggregate, 10 kernel launches, each seed's checkpoint, ms/iteration
+     and the peak with two states resident;
+  8. the kernel summary line and, last, the device line.
 
 Imports nothing of JAX: it runs where only PyTorch and the CUDA toolkit are.
+``python3 chip_smoke.py --rank-of <kind> <dir> ...`` is a rank process of
+phase 7, started by the script itself.
 """
 
 from __future__ import annotations
@@ -90,6 +107,7 @@ import dataclasses
 import json
 import math
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -98,6 +116,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cutmix_seg_tpu_torch.aug.device import augment_batch, border_for_mode
 from cutmix_seg_tpu_torch.aug.params import GeomConfig
@@ -135,6 +154,7 @@ from cutmix_seg_tpu_torch.ops.colour import (
 )
 from cutmix_seg_tpu_torch.ops.cutmix import KERNEL, cutmix_blend, cutmix_blend_plain
 from cutmix_seg_tpu_torch.ops.iou import confusion_matrix
+from cutmix_seg_tpu_torch.parallel.mesh import data_mesh, local_rows, maybe_initialize_distributed
 from cutmix_seg_tpu_torch.semisup.aug_cons import AugConsConfig, make_aug_cons_step
 from cutmix_seg_tpu_torch.semisup.ict import ICTConfig, make_ict_step, sample_beta
 from cutmix_seg_tpu_torch.semisup.mask_mt import MaskConsistencyConfig, make_mask_mt_step
@@ -146,6 +166,7 @@ from cutmix_seg_tpu_torch.semisup.vat import (
 )
 from cutmix_seg_tpu_torch.tools.convert_cityscapes import convert_cityscapes
 from cutmix_seg_tpu_torch.train import aug_mt, common, ict, vat_mt
+from cutmix_seg_tpu_torch.train import multi_seed_mask_mt as mseed
 from cutmix_seg_tpu_torch.train.engine import TrainEngine
 from cutmix_seg_tpu_torch.train.mask_mt import build_spec, experiment, train_seg_semisup_mask_mt
 
@@ -452,7 +473,8 @@ TINY_ALGOS = {
 STATS_RTOL = 1e-4
 
 
-def _check_small_run(name: str, runs: dict, n_px: int, steps: int, lr: float) -> None:
+def _check_small_run(name: str, runs: dict, n_px: int, steps: int, lr: float,
+                     labels=("cpu", "cuda")) -> None:
     """Hold a tiny model's CUDA run against its CPU run: conv sums run in
     another order on the card, so rtol 1e-4 on the CE; the gate is a mean of
     0/1 values, so a pixel whose confidence lies within rounding of the
@@ -464,24 +486,27 @@ def _check_small_run(name: str, runs: dict, n_px: int, steps: int, lr: float) ->
     the first step, within STATS_RTOL."""
     one_gate = 1.0 / n_px
     for i, (mc, mg) in enumerate(zip(runs["cpu"][0], runs["cuda"][0])):
-        note(f"[small] {name} step {i}: cpu {mc} cuda {mg}")
+        note(f"[small] {name} step {i}: {labels[0]} {mc} {labels[1]} {mg}")
         ok = (math.isclose(mc["sup_loss"], mg["sup_loss"], rel_tol=1e-4)
               and abs(mc["conf_rate"] - mg["conf_rate"]) <= 2 * one_gate + 1e-7
               and math.isclose(mc["cons_loss"], mg["cons_loss"],
                                rel_tol=1e-4 + 4 * one_gate))
         if not ok:
-            raise RuntimeError(f"small-model {name} step {i}: GPU and CPU disagree")
+            raise RuntimeError(f"small-model {name} step {i}: {labels[1]} and {labels[0]} "
+                               "disagree")
     first, last = ({k: (runs["cpu"][1][i][k], runs["cuda"][1][i][k]) for k in runs["cpu"][1][i]}
                    for i in (0, -1))
     worst = max((a - b).abs().max().item() for k, (a, b) in last.items() if "running" not in k)
     stats = [((a - b).abs() / a.abs().clamp_min(1.0)).max().item()
              for k, (a, b) in first.items() if "running" in k]
     worst_stats = max(stats, default=0.0)
-    note(f"[small] {name}: max |param cpu - cuda| after {steps} steps: {worst:.3g} "
+    note(f"[small] {name}: max |param {labels[0]} - {labels[1]}| after {steps} steps: "
+         f"{worst:.3g} "
          f"(bound 2*lr*steps = {2 * lr * steps:.3g}); running statistics after step 1: "
          f"max relative difference {worst_stats:.3g} over {len(stats)} (bound {STATS_RTOL})")
     if worst > 2 * lr * steps + 1e-6 or worst_stats > STATS_RTOL:
-        raise RuntimeError(f"small-model {name} states diverge between GPU and CPU")
+        raise RuntimeError(f"small-model {name} states diverge between {labels[1]} and "
+                           f"{labels[0]}")
 
 
 def _run_tiny(device, sd, make_module, cfg, make_step, nb, draws, masks=None) -> tuple:
@@ -1467,6 +1492,248 @@ def phase_recipe_datasets(tmp: str, voc_root: str, isic_zip: str, isic_cutmix: d
     return out
 
 
+# phase 7: data parallelism and the multi-seed trainer
+DDP_ITERS = 5  # 7a, 7c: 1 epoch of the Pascal CutMix line
+DDP_FLAGS = RECIPE_FLAGS + [f"--iters_per_epoch={DDP_ITERS}", "--num_epochs=1"]
+MSEED_SEEDS = "12345,23456"
+# 7b: name -> (module, (global n, h, w), config); the global batch of 4 is
+# 2 + 2 on the two ranks, every batch-statistics BN sees 8 or more values
+# per channel on a rank
+DDP_CASES = {
+    "deeplab2 cutmix frozen BN": (_tiny_deeplab2, (4, 33, 33),
+                                  MaskConsistencyConfig(conf_thresh=0.34)),
+    "resunet cutmix training BN + dropout": (lambda: ResUNet(4, layers=TINY), (4, 64, 64),
+                                             MaskConsistencyConfig(conf_thresh=0.34,
+                                                                   freeze_bn=False)),
+}
+DDP_STEPS = 2
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _rank_env(rank: int, world: int, port: int) -> dict:
+    return {"RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": str(rank),
+            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+
+
+def _spawn_ranks(kind: str, world: int, out_dir: str, timeout: float) -> list:
+    """``world`` processes of this script, rank r running ``kind`` with
+    torchrun's variables; each rank's result (torch.save'd). A rank that
+    fails or outlives ``timeout`` fails the phase; every rank is stopped."""
+    port = _free_port()
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, **_rank_env(r, world, port))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank-of", kind, out_dir],
+            env=env))
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        raise RuntimeError(f"{kind}: rank exit codes {codes}")
+    return [torch.load(os.path.join(out_dir, f"{kind}_{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def _ddp_trainer_rank(results: str) -> dict:
+    """One rank of 7a: the CutMix line through job.submit under the group
+    that torchrun's variables describe (NCCL, one card per rank)."""
+    engine, launches, log = _run_trainer(results, DDP_FLAGS, None, desc="ddp")
+    out = {"launches": launches, "world": dist.get_world_size(), "backend": dist.get_backend(),
+           "rank": dist.get_rank(), "step": engine.state.step}
+    dist.destroy_process_group()
+    return dict(out, log=log, run_dir=engine.ctx.run_dir)
+
+
+def phase_ddp_trainer(voc_root: str, trainer_ms: float) -> dict:
+    """7a: the Pascal CutMix line under a process group: NCCL at world 1 in
+    this process (world 2, one card per rank, where there are two cards)."""
+    results = os.path.join(os.path.dirname(voc_root), "results_ddp")
+    world = 2 if torch.cuda.device_count() >= 2 else 1
+    if world == 1:
+        os.environ.update(_rank_env(0, 1, _free_port()))
+        try:
+            rec = _ddp_trainer_rank(results)
+        finally:
+            for k in _rank_env(0, 1, 0):
+                os.environ.pop(k, None)
+    else:
+        os.makedirs(results, exist_ok=True)
+        rec = _spawn_ranks("ddp_trainer", world, results, 600)[0]
+    if rec["world"] != world or rec["backend"] != "nccl":
+        raise RuntimeError(f"7a: world {rec['world']} over {rec['backend']}, expected {world} nccl")
+    losses = _epoch_line(rec["log"], 1)
+    ckpts = sorted(os.listdir(os.path.join(rec["run_dir"], "checkpoints")))
+    if ckpts != [f"ckpt_{DDP_ITERS:09d}.pt"] or rec["step"] != DDP_ITERS:
+        raise RuntimeError(f"7a: rank 0 wrote checkpoints {ckpts}, step {rec['step']}")
+    if rec["launches"] != DDP_ITERS:
+        raise RuntimeError(f"7a: expected {DDP_ITERS} {KERNEL} launches, got {rec['launches']}")
+    with open(os.path.join(rec["run_dir"], "metrics_ddp.jsonl")) as f:
+        r = json.loads(f.readline())
+    out = {"world": world, "launches": rec["launches"], "losses": losses,
+           "ms_per_iter": r["train_time"] / DDP_ITERS * 1e3, "val_miou": r["val_miou"],
+           "img_per_s": r["images_per_sec"]}
+    note(f"[ddp] 7a: Pascal CutMix line under a {world}-rank NCCL group (global batch "
+         f"{BATCH * world}): epoch 1 {losses}, VAL mIoU {r['val_miou']:.4f}; "
+         f"{out['ms_per_iter']:.2f} ms/iteration over {DDP_ITERS} (the first included) beside "
+         f"phase 6's {trainer_ms:.2f} ms/iteration without a group; {rec['launches']} {KERNEL} "
+         f"launches; rank 0's checkpoint {ckpts}")
+    return out
+
+
+class _GlobalHostMasks(_HostMasks):
+    """Dropout keep masks by call order for the global batch (call k from
+    seed 500 + k), each rank taking its rows."""
+
+    def __init__(self, mesh):
+        super().__init__()
+        self.mesh = mesh
+
+    def draw(self, drop: Dropout, x: torch.Tensor) -> torch.Tensor:
+        n, c, h, w = x.shape
+        rows = n * (1 if self.mesh is None else self.mesh.size)
+        keep = np.random.RandomState(500 + self.k).rand(rows, h, w, c) < 1.0 - drop.rate
+        self.k += 1
+        return torch.from_numpy(local_rows(keep, self.mesh)).to(x.device).permute(0, 3, 1, 2)
+
+
+def _ddp_inputs(name: str):
+    make_module, (n, h, w), cfg = DDP_CASES[name]
+    rng = np.random.RandomState(7)
+    nb = _tiny_batch("mask_mt", n, h, w, rng)
+    draws = [_tiny_draws("mask_mt", n, h, w, rng) for _ in range(DDP_STEPS)]
+    return make_module, cfg, _tiny_weights(6, make_module()), nb, draws
+
+
+def _ddp_case(name: str, mesh) -> tuple:
+    """A 7b case on cuda:0 over ``mesh``'s rows of the global batch (None:
+    the whole batch in one process): _run_tiny's (metrics, tensors)."""
+    make_module, cfg, sd, nb, draws = _ddp_inputs(name)
+    masks = _GlobalHostMasks(mesh)
+    draw_keep = Dropout.draw_keep
+    Dropout.draw_keep = lambda self, x: masks.draw(self, x)
+    try:
+        local = {k: local_rows(v, mesh) for k, v in nb.items()}
+        make = lambda model, opt, c: make_mask_mt_step(model, opt, c, mesh)  # noqa: E731
+        return _run_tiny("cuda", sd, make_module, cfg, make, local, draws, masks)
+    finally:
+        Dropout.draw_keep = draw_keep
+
+
+def _ddp_steps_rank() -> dict:
+    """One rank of 7b: gloo on the one card (NCCL refuses two ranks on one
+    device; gloo all-reduces CUDA tensors through the host)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    maybe_initialize_distributed("cuda:0", backend="gloo")
+    try:
+        mesh = data_mesh()
+        build.launch_counts.clear()
+        runs = {name: _ddp_case(name, mesh) for name in DDP_CASES}
+        return {"runs": runs, "launches": build.launch_counts.get(KERNEL, 0),
+                "backend": dist.get_backend(), "world": mesh.size}
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_ddp_steps(tmp: str) -> dict:
+    """7b: the tiny steps over two ranks sharing the card, against one
+    process on the card over the same global batch (f32, TF32 off in every
+    process)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks("ddp_steps", 2, tmp, 600)
+    t_ranks = time.perf_counter() - t0
+    if any(r["backend"] != "gloo" or r["world"] != 2 for r in ranks):
+        raise RuntimeError("7b: the ranks did not run as two gloo ranks")
+    for name in DDP_CASES:
+        (m0, t0_), (m1, t1_) = ranks[0]["runs"][name], ranks[1]["runs"][name]
+        if m0 != m1 or not all(torch.equal(a[k], b[k]) for a, b in zip(t0_, t1_) for k in a):
+            raise RuntimeError(f"7b {name}: the ranks' states differ")
+        one = _ddp_case(name, None)
+        _, (n, h, w), _ = DDP_CASES[name]
+        _check_small_run(f"2 ranks gloo {name}", {"cpu": one, "cuda": ranks[0]["runs"][name]},
+                         n * h * w, DDP_STEPS, 3e-4, labels=("one process", "2 ranks"))
+    launches = sum(r["launches"] for r in ranks)
+    want = 2 * len(DDP_CASES) * DDP_STEPS
+    if launches != want:
+        raise RuntimeError(f"7b: expected {want} {KERNEL} launches over the ranks, got {launches}")
+    note(f"[ddp] 7b: {sorted(DDP_CASES)} at 2 + 2 over two gloo ranks on one card: ranks "
+         f"bit-identical after each of {DDP_STEPS} steps, within phase 3b's bounds of one "
+         f"process; {launches} {KERNEL} launches (one per rank per step); the ranks took "
+         f"{t_ranks:.1f} s with their start-up")
+    return {"launches": launches, "ranks_s": t_ranks}
+
+
+def phase_multi_seed(voc_root: str, trainer_ms: float) -> dict:
+    """7c: the multi-seed trainer with two seeds on the Pascal CutMix line."""
+    results = os.path.join(os.path.dirname(voc_root), "results_mseed")
+    params = dict(mseed.experiment.make_context(
+        "experiment", DDP_FLAGS + [f"--parallel_split_seeds={MSEED_SEEDS}"]).params)
+    del params["job_desc"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.launch_counts.clear()
+    states = job.submit("chip_smoke_mseed", "run", mseed.train_seg_semisup_mask_mt_multiseed,
+                        params, results_root=results)
+    launches = build.launch_counts.get(KERNEL, 0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    run_dir = os.path.join(results, "chip_smoke_mseed", "run")
+    with open(os.path.join(run_dir, "log_run.txt")) as f:
+        log = f.read()
+    seeds = MSEED_SEEDS.split(",")
+    lines = [ln for ln in log.splitlines() if ln.startswith("Epoch 1 [seed ")]
+    took = []
+    for s, ln in zip(seeds, lines):
+        if not ln.startswith(f"Epoch 1 [seed {s}]:") or "VAL mIoU=" not in ln:
+            raise RuntimeError(f"7c: unexpected epoch line {ln}")
+        if not all(math.isfinite(float(ln.split(key + "=")[1].split(",")[0]))
+                   for key in ("TRAIN clf loss", "consistency loss")):
+            raise RuntimeError(f"7c: non-finite losses {ln}")
+        took.append(float(ln.split("took ")[1].split("s,")[0]))
+    agg = [ln for ln in log.splitlines() if ln.startswith(f"SEEDS AGGREGATE ({MSEED_SEEDS})")]
+    if len(lines) != len(seeds) or len(agg) != 1:
+        raise RuntimeError(f"7c: {len(lines)} epoch lines, {len(agg)} aggregate lines")
+    for k in range(len(seeds)):
+        ckpts = os.listdir(os.path.join(run_dir, "checkpoints", f"seed_{k}"))
+        if ckpts != [f"ckpt_{DDP_ITERS:09d}.pt"] or states[k].step != DDP_ITERS:
+            raise RuntimeError(f"7c: seed {k}: checkpoints {ckpts}, step {states[k].step}")
+    want = len(seeds) * DDP_ITERS
+    if launches != want:
+        raise RuntimeError(f"7c: expected {want} {KERNEL} launches, got {launches}")
+    ms = took[0] / DDP_ITERS * 1e3
+    note(f"[mseed] 7c: seeds {MSEED_SEEDS} in turn on the Pascal CutMix line: {lines}; "
+         f"{agg[0]}; {launches} {KERNEL} launches (one per seed per iteration); "
+         f"{ms:.2f} ms/iteration of both seeds (the first included) beside phase 6's "
+         f"{trainer_ms:.2f} ms/iteration of one; peak {peak:.2f} GiB with two states resident")
+    del states
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms_per_iter": ms, "peak_mem_gib": peak, "aggregate": agg[0]}
+
+
+def rank_main(argv) -> int:
+    """A rank process of phase 7a (two cards; ``out_dir`` is the results
+    root) or 7b."""
+    kind, out_dir = argv
+    rank = int(os.environ["RANK"])
+    out = _ddp_trainer_rank(out_dir) if kind == "ddp_trainer" else _ddp_steps_rank()
+    torch.save(out, os.path.join(out_dir, f"{kind}_{rank}.pt"))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU",
@@ -1517,6 +1784,14 @@ def main() -> int:
         isic_zip = write_isic_zip(os.path.join(tmp, "isic2017.zip"), ISIC_TRAIN, ISIC_VAL, seed=0)
         isic = phase_isic_trainers(tmp, voc_root, isic_zip)
         recipes = phase_recipe_datasets(tmp, voc_root, isic_zip, isic["cutmix"])
+        torch.cuda.empty_cache()
+        t7 = time.perf_counter()
+        os.environ["CUTMIX_SEG_CONFIG"] = write_config(os.path.join(tmp, "seg.cfg"), voc_root)
+        settings._config = None
+        ddp = phase_ddp_trainer(voc_root, trainer["ms_per_iter"])
+        ddp_steps = phase_ddp_steps(tmp)
+        multi_seed = phase_multi_seed(voc_root, trainer["ms_per_iter"])
+        note(f"[phase 7] {time.perf_counter() - t7:.1f} s")
     kernels = [{
         "name": KERNEL, "route": "cuda",
         "source": "cutmix_seg_tpu_torch/csrc/cutmix_blend.cu",
@@ -1545,7 +1820,10 @@ def main() -> int:
                              "trainer Cityscapes cutmix (phase 6d)":
                                  recipes["cityscapes"]["launches"],
                              "trainer VOC cutmix --data_on_device on (phase 6d)":
-                                 recipes["voc_on"]["launches"]},
+                                 recipes["voc_on"]["launches"],
+                             "trainer DDP (phase 7a)": ddp["launches"],
+                             "step 2 ranks gloo (phase 7b)": ddp_steps["launches"],
+                             "trainer multi-seed K=2 (phase 7c)": multi_seed["launches"]},
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
         "kernel_us": k["ms"] * 1e3, "plain_us": k["plain_ms"] * 1e3,
@@ -1565,4 +1843,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-of"]:
+        sys.exit(rank_main(sys.argv[2:]))
     sys.exit(main())

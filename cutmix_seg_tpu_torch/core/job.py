@@ -6,6 +6,11 @@ run; stdout+stderr tee into log_<desc>.txt; if that log already exists the
 job is considered already-run and is skipped. Adds what the reference lacks
 (SURVEY.md §5): structured JSONL metrics next to the log and a checkpoint
 directory for resumable runs.
+
+In a run of several processes (torchrun; ``parallel.mesh``) the process
+group is joined first; rank 0 decides the run directory's name and whether
+the job already ran, every rank follows that decision, and only rank 0
+creates the directory and writes the log.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ import os
 import sys
 import time
 from typing import Optional
+
+from cutmix_seg_tpu_torch.parallel import mesh
 
 
 class Tee:
@@ -53,7 +60,10 @@ def submit(job_name: str, job_desc: str, fn, params: dict,
 
     Mirrors job_helper.job(...).submit(...) (reference: job_helper.py:86-146).
     """
-    desc = job_desc if job_desc else time.strftime("%Y%m%d_%H%M%S")
+    mesh.maybe_initialize_distributed(params.get("device"))
+    lead = mesh.is_lead()
+    desc = job_desc if job_desc else time.strftime(
+        "%Y%m%d_%H%M%S", time.localtime(mesh.lead_value(time.time())))
     run_dir = os.path.join(results_root, job_name, desc)
     log_path = os.path.join(run_dir, f"log_{desc}.txt")
 
@@ -62,12 +72,15 @@ def submit(job_name: str, job_desc: str, fn, params: dict,
     # tee appends, preserving the earlier epochs' output
     if params.get("resume"):
         skip_if_log_exists = False
-    if skip_if_log_exists and os.path.exists(log_path):
+    already = skip_if_log_exists and lead and os.path.exists(log_path)
+    if mesh.lead_value(float(already)):
         print(f"Job {job_name}/{desc} already run (log exists at {log_path}); skipping.")
         return None
 
-    os.makedirs(run_dir, exist_ok=True)
     ctx = RunContext(run_dir, desc)
+    if not lead:
+        return fn(ctx, **params)
+    os.makedirs(run_dir, exist_ok=True)
     os.makedirs(ctx.checkpoint_dir, exist_ok=True)
 
     old_out, old_err = sys.stdout, sys.stderr

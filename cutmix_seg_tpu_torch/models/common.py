@@ -29,6 +29,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from cutmix_seg_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
+
 # Standard normalisation statistics.
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406])
 IMAGENET_STD = np.array([0.229, 0.224, 0.225])
@@ -122,7 +124,12 @@ class BatchNorm2d(nn.Module):
     max(E[x^2] - E[x]^2, 0) (flax's fast variance), normalised with eps and
     cast back to x's dtype. Unless ``track`` is off, the running statistics
     become 0.9 * running + 0.1 * batch, the BIASED variance included
-    (torch's batch_norm would blend in the unbiased one).
+    (torch's batch_norm would blend in the unbiased one). Under a mesh
+    (``set_bn_mesh``) the expectations are over the global batch, as the
+    JAX program over the global batch computes them: the float32 sums of x
+    and x^2 and the count are all-reduced through ``mesh.all_reduce_sum``,
+    whose backward carries the gradient through the global statistics to
+    every rank (``SyncBatchNorm`` would blend the unbiased variance in).
     """
 
     momentum = 0.9
@@ -132,6 +139,7 @@ class BatchNorm2d(nn.Module):
         self.eps = eps
         self.freeze = True  # running averages in train mode too (set_freeze_bn)
         self.track = True   # a batch-statistics forward updates the running ones
+        self.mesh: Optional[Mesh] = None  # batch statistics over these ranks
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -148,14 +156,25 @@ class BatchNorm2d(nn.Module):
         if not self.training or self.freeze:
             return self._affine(x, self.running_mean, self.running_var)
         x32 = x.float()
-        mean = x32.mean(dim=(0, 2, 3))
-        var = torch.clamp_min((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+        if self.mesh is None:
+            mean = x32.mean(dim=(0, 2, 3))
+            var = torch.clamp_min((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+        else:
+            mean, var = self._global_moments(x32)
         if self.track:
             m = self.momentum
             with torch.no_grad():
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
                 self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
         return self._affine(x32, mean, var).to(x.dtype)
+
+    def _global_moments(self, x32: torch.Tensor):
+        c = x32.shape[1]
+        count = torch.full((1,), x32.numel() // c, dtype=torch.float32, device=x32.device)
+        sums = all_reduce_sum(torch.cat([x32.sum(dim=(0, 2, 3)),
+                                         (x32 * x32).sum(dim=(0, 2, 3)), count]))
+        mean = sums[:c] / sums[2 * c]
+        return mean, torch.clamp_min(sums[c:2 * c] / sums[2 * c] - mean * mean, 0.0)
 
     def _affine(self, x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor) -> torch.Tensor:
         mul = torch.rsqrt(var + self.eps) * self.weight
@@ -197,6 +216,14 @@ def set_freeze_bn(module: nn.Module, freeze: bool) -> None:
     for m in module.modules():
         if isinstance(m, BatchNorm2d):
             m.freeze = freeze
+
+
+def set_bn_mesh(module: nn.Module, mesh: Optional[Mesh]) -> None:
+    """Batch statistics over the global batch of ``mesh``'s ranks (None:
+    this process's batch)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm2d):
+            m.mesh = mesh
 
 
 def set_dropout_generator(module: nn.Module, generator: Optional[torch.Generator]) -> None:

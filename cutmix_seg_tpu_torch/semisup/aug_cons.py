@@ -18,6 +18,8 @@ different geometry. One step, in the JAX step's order:
 
 With ``grad_accum`` K > 1, steps 1-4 run once per strided chunk
 (``stepcore.accumulate``): the pair matrices are chunked with the images.
+Over a ``mesh`` of ranks the losses are global (``stepcore``); the step
+draws nothing.
 
 The reference's 'logits_var' branch reuses a stale probability delta and so
 computes 'var' (reference: train_seg_semisup_aug_mt.py:370-374); the JAX
@@ -53,7 +55,7 @@ class AugConsConfig(ConsistencyCommon):
     pass
 
 
-def make_aug_cons_step(model, opt, cfg: AugConsConfig):
+def make_aug_cons_step(model, opt, cfg: AugConsConfig, mesh=None):
     """Build the step function.
 
     batch dict (NHWC, on the state's device): sup_x, sup_y, ux0 (teacher
@@ -61,14 +63,15 @@ def make_aug_cons_step(model, opt, cfg: AugConsConfig):
     xf0_to_1 ((N, 2, 3) grid-space matrices from element 1's frame into
     element 0's).
 
-    Returns ``step(state, batch, ramp) -> (state, metrics)``.
+    Returns ``step(state, batch, ramp) -> (state, metrics)``. ``mesh``: as
+    ``make_mask_mt_step``'s.
     """
     if cfg.grad_accum > 1:
         validate_accum(cfg, "aug_mt")
     use_cons = cfg.cons_weight > 0.0
 
     def step(state: TrainState, batch, ramp):
-        teacher = prepare_nets(cfg, state)
+        teacher = prepare_nets(cfg, state, mesh)
         full = {"sup_x": batch["sup_x"], "sup_y": batch["sup_y"]}
         if use_cons:
             full.update(ux0=batch["ux0"], ux1=batch["ux1"], um0=batch["um0"].float(),
@@ -94,9 +97,9 @@ def make_aug_cons_step(model, opt, cfg: AugConsConfig):
                         prob_tea_in_stu)
 
             return student_backward(cfg, state.student, c, x1, per_px_fn, loss_mask,
-                                    conf_px, ramp)
+                                    conf_px, ramp, mesh=mesh)
 
-        metrics = accumulate(cfg.grad_accum, state.student, full, one_chunk)
+        metrics = accumulate(cfg.grad_accum, state.student, full, one_chunk, mesh)
         return finish_step(state, opt, cfg), metrics
 
     return step

@@ -21,6 +21,9 @@ One step, in the JAX step's order:
 With ``grad_accum`` K > 1, steps 1-2 run once over the whole batch (the
 lambdas do not depend on K) and steps 3-5 once per strided chunk
 (``stepcore.accumulate``).
+
+Over a ``mesh`` of ranks the lambdas are drawn for the global batch and
+each rank keeps its rows; the losses are global (``stepcore``).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 from torch.nn import functional as F
 
 from cutmix_seg_tpu_torch.core.train_state import TrainState
+from cutmix_seg_tpu_torch.parallel.mesh import global_rows, local_rows
 from cutmix_seg_tpu_torch.semisup import losses as L
 from cutmix_seg_tpu_torch.semisup.stepcore import (
     ConsistencyCommon,
@@ -77,7 +81,7 @@ def sample_beta(alpha: float, shape, generator: torch.Generator) -> torch.Tensor
     return torch.sigmoid(beta_logit(alpha, shape, generator))
 
 
-def make_ict_step(model, opt, cfg: ICTConfig):
+def make_ict_step(model, opt, cfg: ICTConfig, mesh=None):
     """Build the step function.
 
     batch dict (NHWC; leading dim B for sup, R*B for unsup; images float,
@@ -85,22 +89,24 @@ def make_ict_step(model, opt, cfg: ICTConfig):
     device: sup_x, sup_y, ux0_tea, ux0_stu, um0, ux1_tea, ux1_stu, um1.
 
     Returns ``step(state, batch, ramp, lam=None) -> (state, metrics)``;
-    ``lam`` (N, 1, 1, 1) replaces the sampled mix factors.
+    ``lam`` (N, 1, 1, 1), for the global batch, replaces the sampled mix
+    factors. ``mesh``: as ``make_mask_mt_step``'s.
     """
     if cfg.grad_accum > 1:
         validate_accum(cfg, "ict")
     use_cons = cfg.cons_weight > 0.0
 
     def step(state: TrainState, batch, ramp, lam: Optional[torch.Tensor] = None):
-        teacher = prepare_nets(cfg, state)
+        teacher = prepare_nets(cfg, state, mesh)
         full = {"sup_x": batch["sup_x"], "sup_y": batch["sup_y"]}
         if use_cons:
             with torch.no_grad():
                 ux0, ux1 = batch["ux0_stu"], batch["ux1_stu"]
                 n = ux0.shape[0]
                 if lam is None:
-                    lam = sample_beta(cfg.ict_alpha, (n, 1, 1, 1), state.generator)
-                lam = lam.to(ux0.dtype)
+                    lam = sample_beta(cfg.ict_alpha, (global_rows(n, mesh), 1, 1, 1),
+                                      state.generator)
+                lam = local_rows(lam, mesh).to(ux0.dtype)
                 full.update(
                     ux0_tea=batch["ux0_tea"], ux1_tea=batch["ux1_tea"],
                     x_mixed=ux0 * (1.0 - lam) + ux1 * lam,
@@ -126,9 +132,9 @@ def make_ict_step(model, opt, cfg: ICTConfig):
                         cfg.cons_loss_fn, logits_stu.float(), logits_tea_mix, prob_tea_mix)
 
             return student_backward(cfg, state.student, c, c.get("x_mixed"), per_px_fn,
-                                    c.get("um_mixed"), conf_px, ramp)
+                                    c.get("um_mixed"), conf_px, ramp, mesh=mesh)
 
-        metrics = accumulate(cfg.grad_accum, state.student, full, one_chunk)
+        metrics = accumulate(cfg.grad_accum, state.student, full, one_chunk, mesh)
         return finish_step(state, opt, cfg), metrics
 
     return step

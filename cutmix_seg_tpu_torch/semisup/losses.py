@@ -8,6 +8,8 @@ dtype of the (N, H, W, C)-scale softmax chain; pixel sums are float32.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch.nn import functional as F
 
@@ -16,9 +18,13 @@ EPS_BCE = 1e-6
 
 def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
                          ignore_value: int = 255,
-                         compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                         compute_dtype: torch.dtype = torch.float32,
+                         count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean softmax cross-entropy over the pixels whose label is not
     ``ignore_value`` (torch CrossEntropyLoss(ignore_index=...) semantics).
+    ``count`` replaces this batch's valid-pixel count in the denominator:
+    under a mesh it is the global count, and the result is this rank's
+    share of the global mean.
 
     :param logits: (N, H, W, C) float
     :param labels: (N, H, W) int
@@ -28,7 +34,7 @@ def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
     logp = F.log_softmax(logits.to(compute_dtype), dim=-1)
     picked = logp.gather(-1, safe_labels[..., None])[..., 0].float()
     losses = torch.where(valid, -picked, 0.0)
-    return losses.sum() / valid.sum().clamp_min(1)
+    return losses.sum() / (valid.sum() if count is None else count).clamp_min(1)
 
 
 def robust_binary_crossentropy(pred: torch.Tensor, tgt: torch.Tensor,

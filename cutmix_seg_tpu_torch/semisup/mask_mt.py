@@ -22,6 +22,11 @@ per strided chunk (``stepcore.accumulate``); the bf16 and remat loss-chain
 options are refused there, as the JAX step refuses them, so the chunks'
 teacher logits and softmax chains are float32.
 
+Over a ``mesh`` of ranks (``parallel.mesh``) the boxes are drawn for the
+global batch and each rank keeps its rows; the kernel runs on the rank's
+slice (the counterpart of ``cutmix_blend_sharded``), and the losses are
+global (``stepcore``).
+
 Metrics stay device tensors (nothing here waits for the device).
 """
 
@@ -40,6 +45,7 @@ from cutmix_seg_tpu_torch.masks.box_mask import (
     sample_box_rects,
 )
 from cutmix_seg_tpu_torch.ops.cutmix import cutmix_blend
+from cutmix_seg_tpu_torch.parallel.mesh import global_rows, local_rows
 from cutmix_seg_tpu_torch.semisup import losses as L
 from cutmix_seg_tpu_torch.semisup.stepcore import (
     ConsistencyCommon,
@@ -71,12 +77,13 @@ class MaskConsistencyConfig(ConsistencyCommon):
     loss_softmax_dtype: str = "float32"
 
 
-def _mix_geometry(cfg: MaskConsistencyConfig, batch, generator, rects):
+def _mix_geometry(cfg: MaskConsistencyConfig, batch, generator, rects, mesh):
     """Returns (x_stu_cons, m, loss_mask) for 'mix' / 'zero'."""
     x = batch["ux0_stu"] if cfg.mask_mode == "mix" else batch["ux_stu"]
     n, hw = x.shape[0], tuple(x.shape[1:3])
     if rects is None:
-        rects = sample_box_rects(cfg.box, generator, n, hw)
+        rects = sample_box_rects(cfg.box, generator, global_rows(n, mesh), hw)
+    rects = local_rows(rects, mesh)
     if cfg.mask_mode == "mix":
         x_stu_cons, m = cutmix_blend(x, batch["ux1_stu"], rects, invert=cfg.box.invert)
         loss_mask = batch["um0"] * (1.0 - m) + batch["um1"] * m
@@ -94,11 +101,12 @@ def _tail(cfg: MaskConsistencyConfig, fn, *args):
     return fn(*args)
 
 
-def make_mask_mt_step(model, opt, cfg: MaskConsistencyConfig):
+def make_mask_mt_step(model, opt, cfg: MaskConsistencyConfig, mesh=None):
     """Build the step function.
 
     ``model`` is the SegModel, ``opt`` the optimiser that
-    ``create_train_state`` returned with the state.
+    ``create_train_state`` returned with the state; ``mesh`` the ranks the
+    step runs over (None: alone), each given its rows of the global batch.
 
     batch dict (NHWC; leading dim B for sup, R*B for unsup; images float,
     labels int (N, H, W), valid masks (N, H, W, 1) float), all on the state's
@@ -108,7 +116,8 @@ def make_mask_mt_step(model, opt, cfg: MaskConsistencyConfig):
       zero mode: ux_tea, ux_stu, um
 
     Returns ``step(state, batch, ramp, rects=None) -> (state, metrics)``;
-    ``rects`` (N, n_boxes, 4) float32 replaces the sampled boxes.
+    ``rects`` (N, n_boxes, 4) float32, for the global batch, replaces the
+    sampled boxes.
     """
     if cfg.mask_mode not in ("mix", "zero"):
         raise ValueError(f"unknown mask_mode {cfg.mask_mode!r}")
@@ -128,12 +137,12 @@ def make_mask_mt_step(model, opt, cfg: MaskConsistencyConfig):
     tea_keys = ("ux0_tea", "ux1_tea") if cfg.mask_mode == "mix" else ("ux_tea",)
 
     def step(state: TrainState, batch, ramp, rects=None):
-        teacher = prepare_nets(cfg, state)
+        teacher = prepare_nets(cfg, state, mesh)
         full = {"sup_x": batch["sup_x"], "sup_y": batch["sup_y"]}
         # ---- mixing geometry over the whole batch, outside the gradient ----
         if use_cons:
             with torch.no_grad():
-                x_stu_cons, m, loss_mask = _mix_geometry(cfg, batch, state.generator, rects)
+                x_stu_cons, m, loss_mask = _mix_geometry(cfg, batch, state.generator, rects, mesh)
             if K > 1 and batch["sup_x"].shape[1:] != x_stu_cons.shape[1:]:
                 raise ValueError(
                     "grad_accum > 1 requires matching supervised/"
@@ -165,11 +174,11 @@ def make_mask_mt_step(model, opt, cfg: MaskConsistencyConfig):
             # ---- student losses under the gradient ----
             return student_backward(
                 cfg, state.student, c, c.get("x_cons"), per_px_fn, c.get("loss_mask"),
-                conf_px, ramp,
-                sup_loss_fn=lambda logits, y: _tail(cfg, L.cross_entropy_ignore, logits, y,
-                                                    cfg.ignore_value, sdt))
+                conf_px, ramp, mesh=mesh,
+                sup_loss_fn=lambda logits, y, count: _tail(
+                    cfg, L.cross_entropy_ignore, logits, y, cfg.ignore_value, sdt, count))
 
-        metrics = accumulate(K, state.student, full, one_chunk)
+        metrics = accumulate(K, state.student, full, one_chunk, mesh)
         return finish_step(state, opt, cfg), metrics
 
     return step

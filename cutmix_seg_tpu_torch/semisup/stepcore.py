@@ -14,6 +14,21 @@ the chunks' means. BN running statistics thread from chunk to chunk in the
 modules' buffers, one forward after the other, as they do through the JAX
 scan carry.
 
+Data parallelism (a ``mesh`` of N ranks, ``parallel.mesh``): the JAX step
+runs over the global batch, so its denominators are global: the CE's valid
+pixel count, the gate's confidence rates and the per-sub-batch pixel counts.
+Each rank computes its numerators over those (``global_denominators``, one
+all-reduce without a gradient per chunk), which makes its loss its share of
+the global loss; the gradients and the loss metrics are then summed over
+the ranks in one all-reduce after the last chunk, before the division by K.
+The global unsupervised batch is the ranks' batches in rank order, and
+JAX's ``reshape(R, -1)`` cuts THAT into R sub-batches, so a rank's rows may
+fall in another sub-batch than its own ``reshape`` would put them in
+(``_subbatch_of_rows``). At K > 1 the global chunk k is the union of the
+ranks' ``x[k::K]`` (K divides each rank's batch), and the denominators and
+BN statistics are the chunk's. Dropout masks are drawn per rank, from a
+generator folded with the rank and the step.
+
 BN and dropout follow the JAX steps: every forward but VAT's direction net
 runs in train mode, so dropout draws masks (from the state's generator) in
 the teacher too; with training BN (``freeze_bn=False``) each forward
@@ -31,12 +46,16 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+import torch.distributed as dist
+
 from cutmix_seg_tpu_torch.core.train_state import Optimizer, TrainState
 from cutmix_seg_tpu_torch.models.common import (
     running_stats_kept,
+    set_bn_mesh,
     set_dropout_generator,
     set_freeze_bn,
 )
+from cutmix_seg_tpu_torch.parallel.mesh import Mesh, all_reduce_grads
 from cutmix_seg_tpu_torch.semisup import losses as L
 from cutmix_seg_tpu_torch.semisup.ema import ema_update, float_tensors
 
@@ -57,14 +76,43 @@ class ConsistencyCommon:
     grad_accum: int = 1
 
 
+def _subbatch_of_rows(cfg: ConsistencyCommon, n: int, mesh: Mesh, device) -> torch.Tensor:
+    """The global sub-batch of each of this rank's n unsupervised rows: the
+    global batch is [rank 0's n rows | rank 1's | ...], cut into R equal
+    parts."""
+    rows = mesh.rank * n + torch.arange(n, device=device)
+    return rows // (n * mesh.size // cfg.unsup_batch_ratio)
+
+
+def global_denominators(cfg: ConsistencyCommon, mesh: Mesh, sup_y: torch.Tensor,
+                        conf_px: Optional[torch.Tensor]) -> torch.Tensor:
+    """[the CE's valid-pixel count, the R sub-batches' confidence sums] of
+    the global batch: this rank's, summed over the ranks (no gradient)."""
+    parts = [(sup_y != cfg.ignore_value).sum().double().reshape(1)]
+    if conf_px is not None:
+        R = cfg.unsup_batch_ratio
+        sub = _subbatch_of_rows(cfg, conf_px.shape[0], mesh, conf_px.device)
+        per_row = conf_px.reshape(conf_px.shape[0], -1).double().sum(dim=1)
+        parts.append(torch.zeros(R, dtype=torch.float64, device=conf_px.device)
+                     .index_add(0, sub, per_row))
+    den = torch.cat(parts)
+    dist.all_reduce(den)
+    return den.float()
+
+
 def masked_consistency(cfg: ConsistencyCommon, per_px: torch.Tensor,
-                       loss_mask: torch.Tensor, conf_px: Optional[torch.Tensor]):
+                       loss_mask: torch.Tensor, conf_px: Optional[torch.Tensor],
+                       mesh: Optional[Mesh] = None, den: Optional[torch.Tensor] = None):
     """Apply the valid mask and confidence gate and reduce per sub-batch.
 
     per_px, loss_mask: (R*B, H, W, 1); conf_px: per-pixel confidence mask or
     None (conf_thresh == 0). Returns (sum over the R sub-batch means, their
-    mean, conf_rate)."""
+    mean, conf_rate). Under a mesh, ``den`` is ``global_denominators``' and
+    the two sums are this rank's shares of the global ones; conf_rate is
+    global."""
     R = cfg.unsup_batch_ratio
+    if mesh is not None:
+        return _masked_consistency_share(cfg, per_px, loss_mask, conf_px, mesh, den)
 
     def subbatch_mean(arr):
         return arr.reshape(R, -1).mean(dim=1)
@@ -78,6 +126,30 @@ def masked_consistency(cfg: ConsistencyCommon, per_px: torch.Tensor,
         conf_rate = conf_rates.mean()
     else:
         masked = subbatch_mean(per_px * loss_mask)
+        conf_rate = torch.ones((), dtype=torch.float32, device=per_px.device)
+    return masked.sum(), masked.mean(), conf_rate
+
+
+def _masked_consistency_share(cfg, per_px, loss_mask, conf_px, mesh, den):
+    R = cfg.unsup_batch_ratio
+    n = per_px.shape[0]
+    sub = _subbatch_of_rows(cfg, n, mesh, per_px.device)
+    count = n * mesh.size // R * per_px[0].numel()  # elements of a global sub-batch
+
+    def subbatch_share(arr):
+        per_row = arr.reshape(n, -1).sum(dim=1)
+        return torch.zeros(R, dtype=per_row.dtype, device=per_row.device) \
+            .index_add(0, sub, per_row) / count
+
+    if conf_px is not None:
+        conf_rates = den[1:] / count
+        if cfg.conf_per_pixel:
+            masked = subbatch_share(per_px * (loss_mask * conf_px))
+        else:
+            masked = subbatch_share(per_px * loss_mask) * conf_rates
+        conf_rate = conf_rates.mean()
+    else:
+        masked = subbatch_share(per_px * loss_mask)
         conf_rate = torch.ones((), dtype=torch.float32, device=per_px.device)
     return masked.sum(), masked.mean(), conf_rate
 
@@ -113,24 +185,41 @@ def chunk_strided(x: torch.Tensor, K: int) -> List[torch.Tensor]:
 
 
 def accumulate(K: int, student: torch.nn.Module, batch: Dict[str, torch.Tensor],
-               one_chunk: Callable[[Dict[str, torch.Tensor]], dict]) -> dict:
+               one_chunk: Callable[[Dict[str, torch.Tensor]], dict],
+               mesh: Optional[Mesh] = None) -> dict:
     """Run ``one_chunk`` on each of the K strided chunks of ``batch`` (a dict
     of tensors with a common leading axis), in chunk order. Each call leaves
     its chunk's gradients added into the student's ``.grad`` and returns its
     metrics; the summed gradients are divided by K once, and the metrics
-    are their means over the chunks. K == 1 runs ``one_chunk(batch)``."""
+    are their means over the chunks. K == 1 runs ``one_chunk(batch)``.
+    Under a mesh the gradients and the loss shares are summed over the
+    ranks after the last chunk, before the division."""
     if K == 1:
-        return one_chunk(batch)
-    per_key = {k: chunk_strided(v, K) for k, v in batch.items()}
-    total = None
-    for i in range(K):
-        m = one_chunk({k: v[i] for k, v in per_key.items()})
-        total = m if total is None else {k: total[k] + v for k, v in m.items()}
+        total = one_chunk(batch)
+    else:
+        per_key = {k: chunk_strided(v, K) for k, v in batch.items()}
+        total = None
+        for i in range(K):
+            m = one_chunk({k: v[i] for k, v in per_key.items()})
+            total = m if total is None else {k: total[k] + v for k, v in m.items()}
+    if mesh is not None:
+        total = _sum_over_ranks(student, total)
+    if K == 1:
+        return total
     with torch.no_grad():
         for p in student.parameters():
             if p.grad is not None:
                 p.grad.div_(K)
     return {k: v / K for k, v in total.items()}
+
+
+def _sum_over_ranks(student: torch.nn.Module, metrics: dict) -> dict:
+    """One all-reduce of the student's gradients with the loss shares
+    (conf_rate is already global)."""
+    shares = [k for k in ("sup_loss", "cons_loss") if k in metrics]
+    summed = all_reduce_grads([p for p in student.parameters() if p.requires_grad],
+                              torch.stack([metrics[k] for k in shares]))
+    return dict(metrics, **{k: summed[i] for i, k in enumerate(shares)})
 
 
 def accum_zero_metrics(use_cons: bool, device=None) -> Dict[str, torch.Tensor]:
@@ -140,15 +229,29 @@ def accum_zero_metrics(use_cons: bool, device=None) -> Dict[str, torch.Tensor]:
     return {k: torch.zeros((), dtype=torch.float32, device=device) for k in keys}
 
 
-def prepare_nets(cfg: ConsistencyCommon, state: TrainState) -> torch.nn.Module:
-    """Set the BN mode (``cfg.freeze_bn``) and the dropout generator (the
-    state's) of the student and the teacher for a step; returns the teacher
-    net (the student itself in pi-model mode)."""
+def prepare_nets(cfg: ConsistencyCommon, state: TrainState,
+                 mesh: Optional[Mesh] = None) -> torch.nn.Module:
+    """Set the BN mode (``cfg.freeze_bn``) and mesh, and the dropout
+    generator (the state's; over several ranks, this rank's fold of it) of
+    the student and the teacher for a step; returns the teacher net (the
+    student itself in pi-model mode)."""
     nets = [state.student] + ([state.teacher] if cfg.mean_teacher else [])
+    dropout_gen = state.generator
+    if mesh is not None and mesh.size > 1:
+        dropout_gen = rank_generator(state, mesh.rank)
     for net in nets:
         set_freeze_bn(net, cfg.freeze_bn)
-        set_dropout_generator(net, state.generator)
+        set_bn_mesh(net, mesh)
+        set_dropout_generator(net, dropout_gen)
     return nets[-1]
+
+
+def rank_generator(state: TrainState, rank: int) -> torch.Generator:
+    """A generator of this rank's own for a step's dropout masks, seeded
+    from the state generator's seed, the step and the rank: masks differ
+    between ranks and steps, and a resumed run draws the same ones."""
+    seed = ((state.generator.initial_seed() * 1_000_003 + state.step) * 4096 + rank) % (1 << 63)
+    return torch.Generator(device=state.generator.device).manual_seed(seed)
 
 
 @torch.no_grad()
@@ -177,16 +280,23 @@ def student_backward(cfg: ConsistencyCommon, student: torch.nn.Module, batch,
                      x_cons: Optional[torch.Tensor],
                      per_px_fn: Callable[[torch.Tensor], torch.Tensor],
                      loss_mask: Optional[torch.Tensor], conf_px: Optional[torch.Tensor],
-                     ramp: float, sup_loss_fn: Optional[Callable] = None) -> dict:
+                     ramp: float, sup_loss_fn: Optional[Callable] = None,
+                     mesh: Optional[Mesh] = None) -> dict:
     """The student's loss and backward: CE (ignore) on ``sup_x`` plus, with
     ``x_cons``, ``ramp * cons_weight`` times the masked consistency of
-    ``per_px_fn(logits of x_cons)``; ``sup_loss_fn(logits, labels)``
+    ``per_px_fn(logits of x_cons)``; ``sup_loss_fn(logits, labels, count)``
     replaces the CE. Under frozen BN one forward over
     ``[sup_x | x_cons]`` is the JAX step's two forwards; with training BN
     the two run in turn, sup_x's statistics updated first. Leaves the
-    gradients in ``.grad``; returns the metrics (device tensors)."""
+    gradients in ``.grad``; returns the metrics (device tensors). Under a
+    mesh the losses are this rank's shares of the global ones."""
     sup_x = batch["sup_x"]
     n = sup_x.shape[0]
+    den = count = None
+    if mesh is not None:
+        den = global_denominators(cfg, mesh, batch["sup_y"],
+                                  conf_px if x_cons is not None else None)
+        count = den[0]
     logits_cons = None
     if x_cons is not None and cfg.freeze_bn and sup_x.shape[1:] == x_cons.shape[1:]:
         logits = student(torch.cat([sup_x, x_cons]))
@@ -196,14 +306,15 @@ def student_backward(cfg: ConsistencyCommon, student: torch.nn.Module, batch,
         if x_cons is not None:
             logits_cons = student(x_cons)
     if sup_loss_fn is None:
-        sup_loss = L.cross_entropy_ignore(logits_sup, batch["sup_y"], cfg.ignore_value)
+        sup_loss = L.cross_entropy_ignore(logits_sup, batch["sup_y"], cfg.ignore_value,
+                                          count=count)
     else:
-        sup_loss = sup_loss_fn(logits_sup, batch["sup_y"])
+        sup_loss = sup_loss_fn(logits_sup, batch["sup_y"], count)
     metrics = {"sup_loss": sup_loss.detach()}
     total = sup_loss
     if logits_cons is not None:
         loss_sum, loss_mean, conf_rate = masked_consistency(
-            cfg, per_px_fn(logits_cons), loss_mask, conf_px)
+            cfg, per_px_fn(logits_cons), loss_mask, conf_px, mesh, den)
         total = total + loss_sum * ramp * cfg.cons_weight
         metrics["cons_loss"] = loss_mean.detach()
         metrics["conf_rate"] = conf_rate.detach()

@@ -29,6 +29,10 @@ their student forwards (``vat_dir_from_student``). In pi-model mode with
 training BN the teacher's statistics are a carry of their own, started from
 the student's and updated by the teacher forwards only, which the step
 discards at its end (``_PiTeacherStats``).
+
+Over a ``mesh`` of ranks the noise is drawn for the global batch and each
+rank keeps its rows; the direction net runs in eval mode, so each sample's
+direction is its own, and the losses are global (``stepcore``).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import torch
 from torch.nn import functional as F
 
 from cutmix_seg_tpu_torch.core.train_state import TrainState
+from cutmix_seg_tpu_torch.parallel.mesh import global_rows, local_rows
 from cutmix_seg_tpu_torch.semisup import losses as L
 from cutmix_seg_tpu_torch.semisup.stepcore import (
     ConsistencyCommon,
@@ -139,15 +144,16 @@ class _PiTeacherStats:
             b.copy_(s)
 
 
-def make_vat_step(model, opt, cfg: VATConfig):
+def make_vat_step(model, opt, cfg: VATConfig, mesh=None):
     """Build the step function.
 
     batch dict (NHWC, on the state's device): sup_x, sup_y, ux_tea, ux_stu,
     um (valid mask (N, H, W, 1)).
 
     Returns ``step(state, batch, ramp, eps0=None) -> (state, metrics)``;
-    ``eps0`` (the shape of ``ux_stu``, float32, normalised and scaled)
-    replaces the sampled noise.
+    ``eps0`` (the shape of the global ``ux_stu``, float32, normalised and
+    scaled) replaces the sampled noise. ``mesh``: as
+    ``make_mask_mt_step``'s.
     """
     K = cfg.grad_accum
     if K > 1:
@@ -157,15 +163,18 @@ def make_vat_step(model, opt, cfg: VATConfig):
                 and not cfg.vat_dir_from_student)
 
     def step(state: TrainState, batch, ramp, eps0: Optional[torch.Tensor] = None):
-        teacher = prepare_nets(cfg, state)
+        teacher = prepare_nets(cfg, state, mesh)
         full = {"sup_x": batch["sup_x"], "sup_y": batch["sup_y"]}
         if use_cons:
             x_stu = batch["ux_stu"]
             h, w = x_stu.shape[1:3]
             if eps0 is None:
-                noise = torch.randn(x_stu.shape, generator=state.generator,
-                                    device=x_stu.device)
+                shape = (global_rows(x_stu.shape[0], mesh),) + tuple(x_stu.shape[1:])
+                noise = local_rows(torch.randn(shape, generator=state.generator,
+                                               device=x_stu.device), mesh)
                 eps0 = _normalize_per_sample(noise) * (1.0e-6 * h * w / 1000.0)
+            else:
+                eps0 = local_rows(eps0, mesh)
             full.update(ux_tea=batch["ux_tea"], ux_stu=x_stu, um=batch["um"].float(),
                         eps0=eps0)
         tea_stats = _PiTeacherStats(teacher) if use_cons and pi_carry else None
@@ -190,9 +199,9 @@ def make_vat_step(model, opt, cfg: VATConfig):
                                                         logits_tea)
 
             return student_backward(cfg, state.student, c, x_adv, per_px_fn, c.get("um"),
-                                    conf_px, ramp)
+                                    conf_px, ramp, mesh=mesh)
 
-        metrics = accumulate(K, state.student, full, one_chunk)
+        metrics = accumulate(K, state.student, full, one_chunk, mesh)
         return finish_step(state, opt, cfg), metrics
 
     return step

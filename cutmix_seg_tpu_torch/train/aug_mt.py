@@ -42,7 +42,7 @@ def build_spec(p):
         grad_accum=p.get("grad_accum", 1),
     )
     spec = AlgorithmSpec(
-        make_step=lambda model, opt: make_aug_cons_step(model, opt, cfg),
+        make_step=lambda model, opt, mesh=None: make_aug_cons_step(model, opt, cfg, mesh),
         unsup_streams=1,
         pair_geom=True,
         fetch=fetch_aug_pair,

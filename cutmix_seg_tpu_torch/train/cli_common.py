@@ -2,7 +2,7 @@
 cutmix_seg_tpu.train.cli_common, so the port's CLI has exactly the JAX
 CLI's flags and defaults (the reference's surface, catalogued in
 CMDLINE_OPTIONS.md, plus the JAX package's extras). Help texts say what the
-port does with each extra; the flags the port does not run yet are
+port does with each extra; the values the port does not run yet are
 refused at setup (train/engine.py)."""
 
 from __future__ import annotations
@@ -71,7 +71,10 @@ def common_options(with_geom_pair_opts: bool = False):
         # extras of the JAX package
         click.option("--compute_dtype", type=click.Choice(
             ["bfloat16", "float32"]), default="bfloat16"),
-        click.option("--n_devices", type=int, default=-1),
+        click.option("--n_devices", type=int, default=-1,
+                     help="JAX-package extra: the data-parallel width; -1 is "
+                          "every process of the run (one GPU each, torchrun "
+                          "--nproc_per_node=N), any other value must equal it"),
         click.option("--resume", is_flag=True, default=False),
         click.option("--nan_check_interval", type=int, default=100),
         click.option("--checkpoint_interval", type=int, default=1,
@@ -85,12 +88,14 @@ def common_options(with_geom_pair_opts: bool = False):
                      help="capture a torch.profiler trace of a few first-epoch "
                           "steps into this directory"),
         click.option("--eval_spatial", is_flag=True, default=False,
-                     help="JAX-package extra (spatial eval over a device "
-                          "mesh); not ported yet: refused at setup"),
+                     help="JAX-package extra (eval with the image H axis "
+                          "split over a device mesh); runs with one process, "
+                          "where it is the plain eval; refused over several "
+                          "(ROADMAP A6b)"),
         click.option("--spatial_train", type=int, default=1,
                      help="JAX-package extra (spatial training over a "
                           "device mesh); not ported yet: values above 1 are "
-                          "refused at setup"),
+                          "refused at setup (ROADMAP A6b)"),
         click.option("--data_on_device", type=click.Choice(
             ["auto", "on", "off"]), default="auto",
             help="JAX-package extra: keep the training canvases in device "

@@ -1,7 +1,7 @@
-"""Shared trainer plumbing on one device (port of
-cutmix_seg_tpu.train.common): model and optimiser configuration, the device
-augmentation of host batches, the evaluation pass and the NaN bail-out
-(reference: train_seg_semisup_mask_mt.py:85-144,479-577).
+"""Shared trainer plumbing (port of cutmix_seg_tpu.train.common): model,
+optimiser, geometry and colour configuration, the device augmentation of
+host batches, the evaluation pass (alone, or sliced over a mesh of ranks)
+and the NaN bail-out (reference: train_seg_semisup_mask_mt.py:85-144,479-577).
 """
 
 from __future__ import annotations
@@ -11,15 +11,23 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cutmix_seg_tpu_torch.aug.device import augment_batch, border_for_mode
+from cutmix_seg_tpu_torch.aug.params import GeomConfig
 from cutmix_seg_tpu_torch.core.schedules import make_lr_schedule
 from cutmix_seg_tpu_torch.core.train_state import OptimizerConfig
 from cutmix_seg_tpu_torch.data.loader import eval_batches
 from cutmix_seg_tpu_torch.eval.evaluator import eval_confusion, predict
 from cutmix_seg_tpu_torch.models import registry
-from cutmix_seg_tpu_torch.ops.colour import ColourJitterConfig, sample_colour_params
+from cutmix_seg_tpu_torch.ops.colour import (
+    ColourJitterConfig,
+    ColourParams,
+    sample_colour_params,
+)
 from cutmix_seg_tpu_torch.ops.iou import EvaluatorIoU
+from cutmix_seg_tpu_torch.parallel import mesh as mesh_mod
+from cutmix_seg_tpu_torch.parallel.mesh import Mesh
 
 
 def epoch_stream_seed(base_seed: int, epoch_i: int) -> int:
@@ -86,6 +94,31 @@ def build_optimizer_config(opt_type, learning_rate, lr_sched, lr_step_epochs,
     )
 
 
+def build_geom(p: dict, crop_hw, pair: bool) -> GeomConfig:
+    """The geometric augmentation of the CLI params; ``pair``: with the
+    aug_mt pair options (reference: train_seg_semisup_aug_mt.py CLI)."""
+    geom = GeomConfig.from_cli(
+        crop_hw, p["aug_scale_hung"], p["aug_max_scale"], p["aug_rot_mag"],
+        p["aug_scale_non_uniform"], p["aug_hflip"], p["aug_vflip"], p["aug_hvflip"])
+    if pair:
+        off = p["aug_offset_range"]
+        geom = dataclasses.replace(
+            geom, crop_offset=(off, off),
+            constrain_rot_scale=not p.get("aug_free_scale_rot", False))
+    return geom
+
+
+def build_colour(p: dict) -> Optional[ColourJitterConfig]:
+    """The colour jitter of the CLI params (None without
+    --aug_strong_colour)."""
+    if not p["aug_strong_colour"]:
+        return None
+    return ColourJitterConfig(
+        brightness=p["aug_colour_brightness"], contrast=p["aug_colour_contrast"],
+        saturation=p["aug_colour_saturation"], hue=p["aug_colour_hue"],
+        apply_prob=p["aug_colour_prob"], greyscale_prob=p["aug_colour_greyscale_prob"])
+
+
 def separable_for_geom(geom) -> bool:
     """Whether the warp can run on the separable matrix-product path: the
     'crop' / 'crop_scale_hung' families produce diagonal affines unless the
@@ -107,7 +140,9 @@ def to_device(host_batch: Dict[str, np.ndarray], device: torch.device):
 class DeviceAugmentor:
     """Applies the device augmentation to host batches already on the
     device (``to_device``). ``mean``/``std`` are best float32 tensors on
-    that device: a host array is copied to the device on every call."""
+    that device: a host array is copied to the device on every call. Over
+    a ``mesh`` each batch is this rank's rows of the global batch, and the
+    colour draws are made for the global batch and sliced."""
 
     mean: torch.Tensor
     std: torch.Tensor
@@ -115,6 +150,7 @@ class DeviceAugmentor:
     geom_mode: str
     colour: Optional[ColourJitterConfig] = None
     separable: bool = False
+    mesh: Optional[Mesh] = None
 
     def _augment(self, batch, with_labels: bool, colour):
         return augment_batch(
@@ -132,28 +168,68 @@ class DeviceAugmentor:
         ``generator``) for the student, and 'mask'."""
         colour = None
         if self.colour is not None:
-            colour = sample_colour_params(generator, batch["canvas"].shape[0], self.colour)
+            n = mesh_mod.global_rows(batch["canvas"].shape[0], self.mesh)
+            colour = sample_colour_params(generator, n, self.colour)
+            if self.mesh is not None:
+                colour = ColourParams(*(mesh_mod.local_rows(getattr(colour, f.name), self.mesh)
+                                        for f in dataclasses.fields(colour)))
         out = self._augment(batch, False, colour)
         out.setdefault("image_stu", out["image"])
         return out
 
 
+SPATIAL_EVAL_MULTI_HOST = (
+    "--eval_spatial places H-sharded global arrays and is single-host only; "
+    "use batch-parallel eval on pods")
+
+
+def eval_batch_size(batch_size: int, mesh: Optional[Mesh]) -> int:
+    """The eval batch rounded up to a multiple of the ranks, so every rank
+    takes an equal slice (padding is metric-neutral: all-255 labels)."""
+    n = 1 if mesh is None else mesh.size
+    return -(-batch_size // n) * n
+
+
+def local_count(count: int, n_local: int, mesh: Optional[Mesh]) -> int:
+    """How many of this rank's slice of an eval batch are real images (the
+    batch's first ``count`` are)."""
+    first = 0 if mesh is None else mesh.rank * n_local
+    return min(max(count - first, 0), n_local)
+
+
 def evaluate(net, source, indices, batch_size, num_classes, mean, std,
-             block_size, device, fill_holes=False):
+             block_size, device, fill_holes=False, mesh: Optional[Mesh] = None,
+             spatial: bool = False):
     """Full eval pass of ``net`` on ``device`` -> per-class IoU array
     (reference metric semantics). Each batch's confusion matrix is added up
     on the device and fetched once; with ``fill_holes`` the predictions come
-    to the host per batch for scipy's hole filling."""
+    to the host per batch for scipy's hole filling.
+
+    Over a ``mesh`` (JAX's batch-parallel eval) the batch is rounded up to
+    a multiple of the ranks, every rank builds the whole batch and
+    evaluates its slice, hole filling (per image) runs on each rank's own
+    predictions, and the confusion matrix is summed over the ranks.
+    ``spatial`` (--eval_spatial) runs with one rank only, where JAX's
+    H-sharded eval is this pass: it pads H to lcm(1, block_h), which the
+    eval batches' block padding already is."""
+    if spatial and mesh is not None and mesh.size > 1:
+        raise ValueError(SPATIAL_EVAL_MULTI_HOST)
     ev = EvaluatorIoU(num_classes, fill_holes=fill_holes)
     cm = torch.zeros((num_classes, num_classes), dtype=torch.int64, device=device)
-    for batch in eval_batches(source, indices, batch_size, block_size):
-        placed = to_device({k: batch[k] for k in ("canvas", "labels", "sizes")}, device)
+    eval_bs = eval_batch_size(batch_size, mesh)
+    for batch in eval_batches(source, indices, eval_bs, block_size):
+        local = mesh_mod.eval_slice({k: batch[k] for k in ("canvas", "labels", "sizes")}, mesh)
+        placed = to_device(local, device)
         if fill_holes:
             pred, y = predict(net, placed, mean, std)
-            n = batch["count"]
+            n = local_count(batch["count"], pred.shape[0], mesh)
             ev.update_batch(pred[:n].cpu().numpy(), y[:n].cpu().numpy())
         else:
             cm += eval_confusion(net, placed, num_classes, mean, std)
+    if mesh is not None:
+        cm += torch.from_numpy(ev.cm).to(device)
+        ev.cm[:] = 0
+        dist.all_reduce(cm)
     ev.update_cm(cm)
     return ev.score()
 

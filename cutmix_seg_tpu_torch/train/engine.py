@@ -1,12 +1,23 @@
-"""Training engine on one device (port of cutmix_seg_tpu.train.engine, single
-GPU): dataset splits, model/optimiser/state construction, host
-loaders, device augmentation, the algorithm step, per-epoch evaluation of
-the EMA teacher with the reference's exact log line, JSONL metrics,
-checkpoints and resume, NaN bail-out, SIGTERM stop, and the final
-save-model / save-preds / test-eval stage (reference:
-train_seg_semisup_mask_mt.py:64-577). Each trainer supplies an
-``AlgorithmSpec``: its step factory and how its unsupervised batch is made
-from the host streams.
+"""Training engine (port of cutmix_seg_tpu.train.engine), on one GPU or
+data-parallel over several, one process each: dataset splits,
+model/optimiser/state construction, host loaders, device augmentation, the
+algorithm step, per-epoch evaluation of the EMA teacher with the
+reference's exact log line, JSONL metrics, checkpoints and resume, NaN
+bail-out, SIGTERM stop, and the final save-model / save-preds / test-eval
+stage (reference: train_seg_semisup_mask_mt.py:64-577). Each trainer
+supplies an ``AlgorithmSpec``: its step factory and how its unsupervised
+batch is made from the host streams.
+
+Several GPUs (``torchrun --nproc_per_node=N``; ``parallel.mesh``): rank r is
+JAX process r with one device. The global batch is ``batch_size * N``; rank r
+draws its host streams from ``seed + r * 7919`` with ``batch_size`` images,
+and the step, the augmentation's colour draws and the eval are global
+(``parallel.mesh``). Only rank 0 writes the log, the metrics JSONL,
+checkpoints, model.pt and predictions; every rank restores from the shared
+run directory. The step's metrics are already global (summed over the ranks
+with the gradients), so every rank fetches the same sums and bails out on a
+NaN together. A SIGTERM stops every rank at the next epoch boundary (the
+flags are summed over the ranks once per epoch).
 
 Each iteration runs, in order: the copy of the uint8 canvases and matrices
 to the device (with the device-resident store, ``--data_on_device``, only
@@ -21,7 +32,9 @@ trainer.augment, trainer.step), so a ``--profile_dir`` trace attributes the
 host's time.
 
 The JAX package's options that the port does not run yet raise at setup,
-before any data loads, naming their ROADMAP item (``check_ported``).
+before any data loads, naming their ROADMAP item (``check_ported``), as do
+the JAX trainer's own refusals of a mismatched ``--n_devices`` and of
+``--eval_spatial`` over several processes.
 """
 
 from __future__ import annotations
@@ -37,7 +50,6 @@ import torch
 from torch.profiler import record_function
 
 from cutmix_seg_tpu_torch.aug import affine as host_affine
-from cutmix_seg_tpu_torch.aug.params import GeomConfig
 from cutmix_seg_tpu_torch.core import checkpoint as ckpt
 from cutmix_seg_tpu_torch.core import job
 from cutmix_seg_tpu_torch.core.train_state import create_train_state
@@ -46,8 +58,8 @@ from cutmix_seg_tpu_torch.data import resident as res_mod
 from cutmix_seg_tpu_torch.data.loader import HostBatchBuilder, eval_batches, train_stream
 from cutmix_seg_tpu_torch.eval.evaluator import predict
 from cutmix_seg_tpu_torch.models import registry
-from cutmix_seg_tpu_torch.ops.colour import ColourJitterConfig
 from cutmix_seg_tpu_torch.ops.iou import EvaluatorIoU
+from cutmix_seg_tpu_torch.parallel import mesh as mesh_mod
 from cutmix_seg_tpu_torch.semisup.stepcore import ConsistencyCommon, accum_zero_metrics
 from cutmix_seg_tpu_torch.train import common
 from cutmix_seg_tpu_torch.utils.device import resolve_device
@@ -58,7 +70,7 @@ from cutmix_seg_tpu_torch.utils.rampup import sigmoid_rampup
 class AlgorithmSpec:
     """What differs between trainers.
 
-    make_step(model, opt) -> step(state, batch, ramp) -> (state, metrics).
+    make_step(model, opt, mesh) -> step(state, batch, ramp) -> (state, metrics).
     unsup_streams: number of independent unsupervised streams (mask_mt mix:
         2; others: 1). ICT draws twice from its single stream.
     pair_geom: sample two correlated geometric transforms per image (aug_mt).
@@ -76,19 +88,28 @@ class AlgorithmSpec:
 
 
 def check_ported(p: dict) -> None:
-    """Refuse the options the port does not run yet, before any data loads
-    (each names its ROADMAP item)."""
+    """Refuse, before any data loads, the options the port does not run
+    yet (naming their ROADMAP item) and what the JAX trainer refuses at
+    this process group's world size."""
     registry.get(p["arch"])  # an unknown name raises KeyError
-    refused = []
-    if p.get("n_devices", -1) not in (-1, 1):
-        refused.append(f"--n_devices {p['n_devices']} (one GPU only) is ROADMAP A6")
-    if p.get("eval_spatial", False):
-        refused.append("--eval_spatial is ROADMAP A6")
+    world = mesh_mod.world()
     if int(p.get("spatial_train", 1) or 1) > 1:
-        refused.append(f"--spatial_train {p['spatial_train']} is ROADMAP A6")
-    if refused:
         raise NotImplementedError(
-            "not ported yet: " + "; ".join(refused))
+            f"not ported yet: --spatial_train {p['spatial_train']} (spatial "
+            "partitioning across ranks) is ROADMAP A6b")
+    check_n_devices(p, world)
+    if p.get("eval_spatial", False) and world != 1:
+        raise ValueError(common.SPATIAL_EVAL_MULTI_HOST)
+
+
+def check_n_devices(p: dict, world: int) -> None:
+    """--n_devices -1 means every rank (one GPU per process); any other
+    value must be the world size."""
+    n_dev = p.get("n_devices", -1)
+    if n_dev not in (-1, world):
+        raise ValueError(
+            f"--n_devices {n_dev} does not match the {world} process(es) of this "
+            "run (one GPU per process: torchrun --nproc_per_node=N)")
 
 
 class TrainEngine:
@@ -103,8 +124,12 @@ class TrainEngine:
     # ---- construction ----
     def setup(self):
         p = self.p
-        check_ported(p)
         self.device = resolve_device(self.device)
+        # before anything touches the data: the refusals depend on the world
+        mesh_mod.maybe_initialize_distributed(self.device)
+        check_ported(p)
+        self.mesh = mesh_mod.data_mesh()
+        self.is_lead = mesh_mod.is_lead()
         if self.device.type == "cuda":
             # the crop and eval shapes are fixed: cuDNN picks its algorithms
             # once per shape
@@ -160,30 +185,20 @@ class TrainEngine:
                 ckpt.restore_checkpoint(latest, self.state)
                 self.start_epoch = self.state.step // max(p["iters_per_epoch"], 1)
                 print(f"Resumed from {latest} at epoch {self.start_epoch}")
+            steps = mesh_mod.gather_host(self.state.step)
+            if len(set(steps)) != 1:
+                # only rank 0 saves: a rank without the shared run
+                # directory would restart fresh and hang the collectives
+                raise RuntimeError(
+                    "--resume requires every process to restore the same "
+                    f"checkpoint step; got {[int(s) for s in steps]} — use a "
+                    "shared results directory across hosts")
 
-        self.geom = GeomConfig.from_cli(
-            self.crop_hw, p["aug_scale_hung"], p["aug_max_scale"],
-            p["aug_rot_mag"], p["aug_scale_non_uniform"], p["aug_hflip"],
-            p["aug_vflip"], p["aug_hvflip"])
-        if "aug_offset_range" in p:
-            # aug_mt pair options (reference: train_seg_semisup_aug_mt.py CLI)
-            off = p["aug_offset_range"]
-            self.geom = dataclasses.replace(
-                self.geom, crop_offset=(off, off),
-                constrain_rot_scale=not p.get("aug_free_scale_rot", False))
-        colour = (
-            ColourJitterConfig(
-                brightness=p["aug_colour_brightness"],
-                contrast=p["aug_colour_contrast"],
-                saturation=p["aug_colour_saturation"],
-                hue=p["aug_colour_hue"],
-                apply_prob=p["aug_colour_prob"],
-                greyscale_prob=p["aug_colour_greyscale_prob"])
-            if p["aug_strong_colour"] else None)
+        self.geom = common.build_geom(p, self.crop_hw, pair="aug_offset_range" in p)
         self.augmentor = common.DeviceAugmentor(
-            self.mean, self.std, self.crop_hw, self.geom.mode, colour,
-            separable=common.separable_for_geom(self.geom))
-        self.step = self.spec.make_step(self.model, self.opt)
+            self.mean, self.std, self.crop_hw, self.geom.mode, common.build_colour(p),
+            separable=common.separable_for_geom(self.geom), mesh=self.mesh)
+        self.step = self.spec.make_step(self.model, self.opt, self.mesh)
 
         self.use_cons = self.algo_cfg.cons_weight > 0.0
         self._setup_resident(p)
@@ -195,6 +210,10 @@ class TrainEngine:
             n_threads=p["num_workers"], resident=self.resident)
             if self.use_cons else None)
         self._seed = p.get("seed", 0)
+        # each rank its own host streams; the colour draws, made for the
+        # global batch, from the base seed on every rank
+        self._stream_seed = self._seed + mesh_mod.rank() * 7919
+        self.global_batch = p["batch_size"] * mesh_mod.world()
         # streams are (re)opened per epoch with epoch-folded seeds
         self.sup_stream = None
         self.streams = []
@@ -222,6 +241,12 @@ class TrainEngine:
             raise ValueError(f"--data_on_device must be auto/on/off, got {mode}")
         if mode == "off":
             return
+        if mesh_mod.world() > 1:
+            if mode == "on":
+                raise ValueError(
+                    "--data_on_device on is single-process only (replicating "
+                    "the store across DCN hosts is not supported); use auto/off")
+            return
         need = (np.unique(np.concatenate([self.sup_ndx, self.unsup_ndx]))
                 if self.use_cons else np.unique(self.sup_ndx))
         nbytes = res_mod.resident_nbytes(self.ds, len(need), True)
@@ -234,11 +259,11 @@ class TrainEngine:
     def _open_epoch_streams(self, epoch_i: int):
         """(Re)open the host input streams and the colour generator with
         epoch-folded seeds: host randomness and colour draws are a pure
-        function of (seed, epoch), and the box generator is part of the
-        checkpointed state, so a --resume from an epoch-boundary checkpoint
-        continues the run exactly (bit for bit on the CPU)."""
+        function of (seed, rank, epoch), and the box generator is part of
+        the checkpointed state, so a --resume from an epoch-boundary
+        checkpoint continues the run exactly (bit for bit on the CPU)."""
         self.close_streams()
-        ep = common.epoch_stream_seed(self._seed, epoch_i)
+        ep = common.epoch_stream_seed(self._stream_seed, epoch_i)
         bs = self.p["batch_size"]
         self.sup_stream = train_stream(self._sup_builder, self.sup_ndx, bs, seed=ep + 10)
         if self.use_cons:
@@ -288,10 +313,13 @@ class TrainEngine:
     def run(self):
         if not self.setup():
             return
-        # SIGTERM (preemptible machines): the handler only sets a flag; the
-        # loop stops before the next iteration, and the last epoch-boundary
-        # checkpoint resumes the run exactly
+        # SIGTERM (preemptible machines): the handler only sets a flag. One
+        # process stops before the next iteration; several finish the epoch
+        # and stop together at its boundary (a lone stop would leave the
+        # others waiting in a collective). The last epoch-boundary
+        # checkpoint resumes the run exactly.
         self._preempted = False
+        self._solo = mesh_mod.world() == 1
 
         def _on_term(signum, frame):
             self._preempted = True
@@ -333,7 +361,7 @@ class TrainEngine:
             for it in range(p["iters_per_epoch"]):
                 # checked before the iteration: a signal during an epoch's
                 # last step lets it finish (eval + checkpoint)
-                if self._preempted:
+                if self._solo and self._preempted:
                     if prof is not None:
                         _stop_profile(prof, self.device, profile_dir)
                     print("PREEMPTED: stopped at epoch {} before iter {}; "
@@ -370,7 +398,8 @@ class TrainEngine:
             iou = common.evaluate(
                 self.eval_net(), self.ds, self.val_ndx, p["batch_size"],
                 self.n_classes, self.mean, self.std, self.model.block_size,
-                self.device, p["bin_fill_holes"])
+                self.device, p["bin_fill_holes"], self.mesh,
+                spatial=p.get("eval_spatial", False))
             miou = iou.mean()
             t2 = time.time()
             print(
@@ -380,22 +409,27 @@ class TrainEngine:
                     conf_rate_acc, miou))
             print("-- {}".format(", ".join(f"{x:.3%}" for x in iou)))
 
-            self.ctx.log_metrics({
-                "epoch": epoch_i + 1, "sup_loss": sup_loss_acc,
-                "cons_loss": cons_loss_acc, "conf_rate": conf_rate_acc,
-                "val_miou": float(miou), "epoch_time": t2 - t1,
-                "images_per_sec": p["iters_per_epoch"] * p["batch_size"] / max(t2 - t1, 1e-9),
-                "train_time": t_train, "eval_time": t2 - t1 - t_train,
-            })
+            if self.is_lead:
+                self.ctx.log_metrics({
+                    "epoch": epoch_i + 1, "sup_loss": sup_loss_acc,
+                    "cons_loss": cons_loss_acc, "conf_rate": conf_rate_acc,
+                    "val_miou": float(miou), "epoch_time": t2 - t1,
+                    "images_per_sec": p["iters_per_epoch"] * self.global_batch
+                    / max(t2 - t1, 1e-9),
+                    "train_time": t_train, "eval_time": t2 - t1 - t_train,
+                })
+            stop = self._preempted
+            if not self._solo:  # any rank's signal stops every rank here
+                stop = bool(mesh_mod.host_sum([float(stop)])[0] > 0)
             ci = max(1, int(p.get("checkpoint_interval", 1)))
             last = epoch_i + 1 == p["num_epochs"]
-            if (epoch_i + 1) % ci == 0 or last or self._preempted:
+            if self.is_lead and ((epoch_i + 1) % ci == 0 or last or stop):
                 # host copy now; serialise + write overlap the next epoch.
                 # A stop makes this epoch the resume point, so it saves
                 # even where the interval would skip it.
                 ckpt.save_checkpoint_async(
                     self.ctx.checkpoint_dir, self.state, self.state.step)
-            if self._preempted and not last:
+            if stop and not last:
                 print("PREEMPTED: stopping after epoch "
                       f"{epoch_i + 1}; rerun with --resume", flush=True)
                 return
@@ -405,21 +439,28 @@ class TrainEngine:
     # ---- final artifacts ----
     def finalise(self):
         p = self.p
-        if p["save_model"]:
+        if p["save_model"] and self.is_lead:
             ckpt.export_params(os.path.join(self.ctx.run_dir, "model.pt"), self.eval_net())
 
         if p["save_preds"] or self.test_ndx is not None:
-            out_dir = os.path.join(self.ctx.run_dir, "preds") if p["save_preds"] else None
+            out_dir = (os.path.join(self.ctx.run_dir, "preds")
+                       if p["save_preds"] and self.is_lead else None)
             if out_dir:
                 os.makedirs(out_dir, exist_ok=True)
 
             def predict_over(indices, evaluator=None):
-                for batch in eval_batches(self.ds, indices, p["batch_size"],
-                                          self.model.block_size):
-                    placed = common.to_device(
-                        {k: batch[k] for k in ("canvas", "labels", "sizes")}, self.device)
-                    pred, y = predict(self.eval_net(), placed, self.mean, self.std)
-                    pred, y = pred.cpu().numpy(), y.cpu().numpy()
+                # every rank predicts its slice of each batch; the slices
+                # are gathered, so every rank scores the whole batch and
+                # rank 0 writes the predictions of a one-process run
+                eval_bs = common.eval_batch_size(p["batch_size"], self.mesh)
+                for batch in eval_batches(self.ds, indices, eval_bs, self.model.block_size):
+                    local = mesh_mod.eval_slice(
+                        {k: batch[k] for k in ("canvas", "labels", "sizes")}, self.mesh)
+                    pred, _ = predict(self.eval_net(), common.to_device(local, self.device),
+                                      self.mean, self.std)
+                    if self.mesh is not None:
+                        pred = mesh_mod.gather_rows(pred, self.mesh)
+                    pred, y = pred.cpu().numpy(), batch["labels"].astype(np.int64)
                     for k in range(batch["count"]):
                         i = int(batch["indices"][k])
                         h, w = batch["sizes"][k]

@@ -56,7 +56,7 @@ def build_spec(p):
         loss_softmax_dtype=p.get("loss_softmax_dtype", "float32"),
     )
     spec = AlgorithmSpec(
-        make_step=lambda model, opt: make_mask_mt_step(model, opt, cfg),
+        make_step=lambda model, opt, mesh=None: make_mask_mt_step(model, opt, cfg, mesh),
         unsup_streams=2 if mask_mix else 1,
         pair_geom=False,
         fetch=fetch_two_streams if mask_mix else fetch_one_stream,

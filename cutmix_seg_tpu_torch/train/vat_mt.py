@@ -43,7 +43,7 @@ def build_spec(p):
         grad_accum=p.get("grad_accum", 1),
     )
     spec = AlgorithmSpec(
-        make_step=lambda model, opt: make_vat_step(model, opt, cfg),
+        make_step=lambda model, opt, mesh=None: make_vat_step(model, opt, cfg, mesh),
         unsup_streams=1,
         pair_geom=False,
         fetch=fetch_one_stream,

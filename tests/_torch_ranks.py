@@ -1,0 +1,442 @@
+"""Rank processes for the port's data-parallel tests.
+
+``run_ranks(tmp_path, task)`` starts ``world`` processes of
+``python -m tests._torch_ranks <dir> <rank> <world>``, joined into one gloo
+group through a ``file://`` store under ``tmp_path``; each runs the task's
+kind (``TASKS``) with its ``parallel.mesh.Mesh`` and saves its result. The
+spawn has a deadline: a rank that fails, or one that outlives it (a stalled
+collective), fails the call and every rank is killed, so the test fails
+instead of hanging the suite. The ranks import the port only (no JAX), so
+they start in a few seconds; the parent holds their results against the
+JAX package.
+
+The step cases (``run_steps``) are also run in the parent with no mesh on
+the global batch: the port at world 1.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import datetime
+import hashlib
+import os
+import subprocess
+import sys
+import time
+import uuid
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.nn import functional as F
+
+from cutmix_seg_tpu_torch.core import train_state as tts
+from cutmix_seg_tpu_torch.models import common as tcommon
+from cutmix_seg_tpu_torch.models.deeplab2 import DeepLab2, _param_label
+from cutmix_seg_tpu_torch.parallel.mesh import Mesh, all_reduce_grads, local_rows
+from cutmix_seg_tpu_torch.semisup import aug_cons, ict, mask_mt, vat
+
+ROOT = Path(__file__).resolve().parents[1]
+LR = 3e-4
+C = 4
+
+# ---- the parent's side ----
+
+
+def run_ranks(tmp_path, task: dict, world: int = 2, timeout: float = 240.0) -> list:
+    """Run ``task`` in ``world`` rank processes; each rank's result, in rank
+    order."""
+    return RankProcesses(tmp_path, task, world, timeout).wait()
+
+
+class RankProcesses:
+    """Start ``task`` in ``world`` rank processes; ``wait()`` returns each
+    rank's result, in rank order (the parent can work meanwhile)."""
+
+    def __init__(self, tmp_path, task: dict, world: int = 2, timeout: float = 240.0):
+        self.d = Path(tmp_path) / f"ranks_{uuid.uuid4().hex[:8]}"
+        self.d.mkdir(parents=True)
+        self.world, self.timeout = world, timeout
+        torch.save(task, self.d / "task.pt")
+        env = dict(os.environ, OMP_NUM_THREADS="1",
+                   PYTHONPATH=os.pathsep.join([str(ROOT)] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+        self.deadline = time.monotonic() + timeout
+        self.procs = []
+        for r in range(world):
+            with open(self.d / f"log_{r}.txt", "w") as log:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "tests._torch_ranks", str(self.d), str(r),
+                     str(world)], cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT))
+
+    def wait(self) -> list:
+        try:
+            for p in self.procs:
+                try:
+                    p.wait(timeout=max(self.deadline - time.monotonic(), 0.1))
+                except subprocess.TimeoutExpired:
+                    raise AssertionError(f"rank processes outlived {self.timeout} s:\n"
+                                         f"{_logs(self.d, self.world)}") from None
+        finally:
+            self.kill()
+        for r, p in enumerate(self.procs):
+            if p.returncode != 0:
+                raise AssertionError(
+                    f"rank {r} exited with {p.returncode}:\n{_logs(self.d, self.world)}")
+        return [torch.load(self.d / f"out_{r}.pt", weights_only=False)
+                for r in range(self.world)]
+
+    def kill(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _logs(d: Path, world: int) -> str:
+    return "\n".join(f"--- rank {r}\n" + (d / f"log_{r}.txt").read_text()[-4000:]
+                     for r in range(world))
+
+
+# ---- the models and step cases ----
+
+
+class TinyBN(torch.nn.Module):
+    """conv-BN-ReLU, conv-dropout-BN-ReLU, 1x1 classifier: the torch twin of
+    test_torch_trainbn.py's JTiny (the same parameter names)."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv0 = tcommon.Conv2d(3, 8, 3, padding=1, bias=False)
+        self.bn0 = tcommon.BatchNorm2d(8)
+        self.conv1 = tcommon.Conv2d(8, 8, 3, padding=1, bias=False)
+        self.drop = tcommon.Dropout(0.3)
+        self.bn1 = tcommon.BatchNorm2d(8)
+        self.classifier = tcommon.Conv2d(8, C, 1)
+
+    def forward(self, x):
+        y = F.relu(self.bn0(self.conv0(x.permute(0, 3, 1, 2))))
+        y = F.relu(self.bn1(self.drop(self.conv1(y))))
+        return self.classifier(y).permute(0, 2, 3, 1)
+
+
+MODELS = {
+    "deeplab2": lambda: tcommon.SegModel("tiny", DeepLab2(C, layers=(1, 1, 1, 1)), np.zeros(3),
+                                         np.ones(3), (1, 1), _param_label),
+    "tinybn": lambda: tcommon.SegModel(
+        "tiny", TinyBN(), np.zeros(3), np.ones(3), (1, 1),
+        lambda m: tcommon.label_params_by_path(m, [("conv0", "pretrained")])),
+}
+STEPS = {  # algorithm: (config class, step factory)
+    "mask_mt": (mask_mt.MaskConsistencyConfig, mask_mt.make_mask_mt_step),
+    "ict": (ict.ICTConfig, ict.make_ict_step),
+    "vat": (vat.VATConfig, vat.make_vat_step),
+    "aug": (aug_cons.AugConsConfig, aug_cons.make_aug_cons_step),
+}
+SUP_KEYS = ("sup_x", "sup_y")
+
+
+class GlobalMasks:
+    """Dropout keep masks by call order for the GLOBAL batch, mask k from
+    seed 300 + k (test_torch_trainbn.StepMasks), k wrapping at ``per``;
+    a rank takes its rows (of the global chunk, at grad_accum K)."""
+
+    def __init__(self, per: int, mesh):
+        self.k, self.per, self.mesh = 0, per, mesh
+
+    def draw(self, drop, x):
+        n, c, h, w = x.shape
+        rows = n * (1 if self.mesh is None else self.mesh.size)
+        keep = np.random.RandomState(300 + self.k % self.per).rand(rows, h, w, c) \
+            < 1.0 - drop.rate
+        self.k += 1
+        return torch.from_numpy(local_rows(keep, self.mesh)).permute(0, 3, 1, 2)
+
+
+def digest(tree) -> str:
+    """A hash of every tensor and number of a (nested) state, in key order:
+    equal digests are bit-equal states (the tests ship digests, not the
+    tens of MB of a state, between processes)."""
+    h = hashlib.sha256()
+
+    def walk(x):
+        if isinstance(x, dict):
+            for k in sorted(x):
+                h.update(str(k).encode())
+                walk(x[k])
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        elif torch.is_tensor(x):
+            h.update(str((x.dtype, tuple(x.shape))).encode())
+            h.update(x.detach().cpu().contiguous().numpy().tobytes())
+        else:
+            h.update(repr(x).encode())
+
+    walk(tree)
+    return h.hexdigest()
+
+
+def run_steps(case: dict, mesh) -> dict:
+    """One case's steps: the port's state from ``case['state_dict']``, its
+    rows of the global batch and the global draws of each step. Returns the
+    metrics and a digest of the state after each step, the generator's
+    state, and (alone or on rank 0) the state dicts after the last step."""
+    model = MODELS[case["model"]]()
+    cfg_cls, make = STEPS[case["algo"]]
+    cfg = cfg_cls(**case["cfg"])
+    state, opt = tts.create_train_state(
+        model, tts.OptimizerConfig(opt_type="adam", learning_rate=LR), 0, device="cpu",
+        mean_teacher=cfg.mean_teacher, pretrained=False)
+    for net in (state.student, state.teacher):
+        if net is not None:
+            net.load_state_dict(case["state_dict"])
+    step = make(model, opt, cfg, mesh)
+    batch = {k: torch.from_numpy(local_rows(v, mesh)) for k, v in case["batch"].items()}
+    batch["sup_y"] = batch["sup_y"].long()
+    masks = GlobalMasks(case.get("masks_per_chunk", 1), mesh)
+    patched = (_patched_draw(masks) if case.get("masks_per_chunk")
+               else contextlib.nullcontext())
+    out = {"metrics": [], "digests": []}
+    with patched:
+        for draws in case["draws"]:
+            masks.k = 0
+            state, m = step(state, batch, 1.0,
+                            **{k: torch.from_numpy(v) for k, v in draws.items()})
+            out["metrics"].append({k: v.item() for k, v in m.items()})
+            final = {part: net.state_dict()
+                     for part, net in (("student", state.student), ("teacher", state.teacher))
+                     if net is not None}
+            out["digests"].append(digest(final))
+    out["generator"] = state.generator.get_state()
+    out["final"] = final if mesh is None or mesh.rank == 0 else None
+    return out
+
+
+@contextlib.contextmanager
+def _patched_draw(masks: GlobalMasks):
+    draw = tcommon.Dropout.draw_keep
+    tcommon.Dropout.draw_keep = lambda self, x: masks.draw(self, x)
+    try:
+        yield
+    finally:
+        tcommon.Dropout.draw_keep = draw
+
+
+# ---- BatchNorm's gradient through the global statistics ----
+
+
+def _bn_inputs():
+    rng = np.random.RandomState(7)
+    x = (rng.randn(6, 5, 4, 4) * 2.0 + 1.0).astype(np.float32)  # NCHW, 3 + 3 rows
+    w = rng.randn(6, 5, 4, 4).astype(np.float32)  # the loss is sum(w * bn(x))
+    return x, w
+
+
+def _bn_run(x, w, mesh):
+    bn = tcommon.BatchNorm2d(5)
+    with torch.no_grad():
+        bn.weight.copy_(torch.linspace(0.5, 1.5, 5))
+        bn.bias.copy_(torch.linspace(-0.2, 0.2, 5))
+    bn.train()
+    bn.freeze, bn.mesh = False, mesh
+    xt = torch.from_numpy(x).requires_grad_(True)
+    (bn(xt) * torch.from_numpy(w)).sum().backward()
+    return xt.grad, bn
+
+
+def bn_grad_reference() -> dict:
+    """One process over the global batch; ``x_grad_const_stats``: the input
+    gradient were the statistics constants."""
+    x, w = _bn_inputs()
+    x_grad, bn = _bn_run(x, w, None)
+    var = torch.from_numpy(x).var(dim=(0, 2, 3), unbiased=False)
+    const = torch.from_numpy(w) * (bn.weight.detach() * torch.rsqrt(var + bn.eps))[:, None, None]
+    return {"x_grad": x_grad.numpy(), "x_grad_const_stats": const.numpy(),
+            "weight_grad": bn.weight.grad.numpy(), "bias_grad": bn.bias.grad.numpy(),
+            "running_mean": bn.running_mean.numpy(), "running_var": bn.running_var.numpy()}
+
+
+def task_bn_grad(task, mesh):
+    x, w = _bn_inputs()
+    x_grad, bn = _bn_run(local_rows(x, mesh), local_rows(w, mesh), mesh)
+    all_reduce_grads(list(bn.parameters()))
+    return {"x_grad": x_grad.numpy(), "weight_grad": bn.weight.grad.numpy(),
+            "bias_grad": bn.bias.grad.numpy(), "running_mean": bn.running_mean.numpy(),
+            "running_var": bn.running_var.numpy()}
+
+
+# ---- the trainers ----
+
+
+def tiny_deeplab(num_classes, dtype=None, pretrained=True):
+    return tcommon.SegModel("tiny", DeepLab2(num_classes, layers=(1, 1, 1, 1), dtype=dtype),
+                            np.zeros(3), np.ones(3), (1, 1), _param_label)
+
+
+def trainer_env(task) -> None:
+    """What test_torch_trainer's ``voc`` fixture and tiny arch set up, in a
+    rank process (the config's path comes in the environment)."""
+    from cutmix_seg_tpu_torch.data import sources
+    from cutmix_seg_tpu_torch.models import registry
+
+    sources.PascalVOCDataSource.canvas_hw = (48, 48)
+    registry.register(task["arch"])(tiny_deeplab)
+
+
+class WriteCounter:
+    """Counts this process's calls of the functions that write a run's
+    artifacts."""
+
+    def __init__(self):
+        from cutmix_seg_tpu_torch.core import checkpoint, job
+        from cutmix_seg_tpu_torch.data import sources
+
+        self.counts = {}
+        for owner, name in ((checkpoint, "save_checkpoint_async"), (checkpoint, "save_checkpoint"),
+                            (checkpoint, "export_params"), (job.RunContext, "log_metrics"),
+                            (sources.PascalVOCDataSource, "save_prediction_by_index")):
+            self._wrap(owner, name)
+
+    def _wrap(self, owner, name):
+        fn = getattr(owner, name)
+        self.counts[name] = 0
+
+        def counted(*a, **k):
+            self.counts[name] += 1
+            return fn(*a, **k)
+
+        setattr(owner, name, counted)
+
+
+def eval_world(net, ds, mesh, num_classes, fill_holes):
+    """The eval pass over 11 images in batches of 5 (6 at world 2: rank 1
+    takes the padded end of the last batch)."""
+    from cutmix_seg_tpu_torch.train import common
+
+    return common.evaluate(net, ds, np.arange(11), 5, num_classes, np.zeros(3), np.ones(3),
+                           (1, 1), torch.device("cpu"), fill_holes, mesh)
+
+
+def holes_net():
+    """A 2-class tiny DeepLab v2 from a seed, for the fill-holes eval."""
+    torch.manual_seed(5)
+    return DeepLab2(2, layers=(1, 1, 1, 1)).eval()
+
+
+def task_trainer(task, mesh):
+    """The mask_mt trainer through job.submit for each of ``task['runs']``
+    (desc, param overrides) in turn: each run's final state and this rank's
+    writes; then the eval pass of the last run's teacher (and of a 2-class
+    net with hole filling) over this rank's slices."""
+    from cutmix_seg_tpu_torch.core import checkpoint, job
+    from cutmix_seg_tpu_torch.train import mask_mt as tmask_mt
+
+    trainer_env(task)
+    writes = WriteCounter()
+    out = {"runs": {}}
+    for desc, overrides in task["runs"]:
+        eng = job.submit("test_torch_ddp", desc, tmask_mt.train_seg_semisup_mask_mt,
+                         dict(task["params"], **overrides), results_root=task["root"])
+        out["runs"][desc] = {"digest": digest(checkpoint.state_to_host(eng.state)),
+                             "step": eng.state.step, "start_epoch": eng.start_epoch}
+    out["writes"] = dict(writes.counts)
+    if mesh.rank == 0:  # the last run's eval net, for the parent's world-1 eval
+        out["teacher"] = eng.eval_net().state_dict()
+    out["iou"] = eval_world(eng.eval_net(), eng.ds, mesh, eng.n_classes, False)
+    out["iou_holes"] = eval_world(holes_net(), eng.ds, mesh, 2, True)
+    return out
+
+
+def task_streams(task, mesh):
+    """This rank's first host batches of epoch 0 from the engine's streams."""
+    from cutmix_seg_tpu_torch.core import job
+    from cutmix_seg_tpu_torch.train import engine, mask_mt as tmask_mt
+
+    trainer_env(task)
+    spec, cfg = tmask_mt.build_spec(task["params"])
+    eng = engine.TrainEngine(job.RunContext(task["root"], "streams"), spec, cfg,
+                             task["params"], "cpu")
+    assert eng.setup()
+    eng._open_epoch_streams(0)
+    try:
+        return {"sup": next(eng.sup_stream), **spec.fetch(eng, eng.streams)}
+    finally:
+        eng.close_streams()
+
+
+def task_multiseed(task, mesh):
+    """The multi-seed trainer through job.submit: this rank's seeds' final
+    states."""
+    from cutmix_seg_tpu_torch.core import checkpoint, job
+    from cutmix_seg_tpu_torch.train import multi_seed_mask_mt as tms
+
+    trainer_env(task)
+    writes = WriteCounter()
+    states = job.submit("test_torch_mseed", task["desc"], tms.train_seg_semisup_mask_mt_multiseed,
+                        task["params"], results_root=task["root"])
+    return {"digests": {k: digest(checkpoint.state_to_host(st)) for k, st in states.items()},
+            "writes": dict(writes.counts)}
+
+
+# ---- the rank processes' tasks ----
+
+
+def task_steps(task, mesh):
+    return {name: run_steps(case, mesh) for name, case in task["cases"].items()}
+
+
+def task_collectives(task, mesh):
+    """Each of parallel.mesh's collectives on rank-dependent values."""
+    from cutmix_seg_tpu_torch.parallel import mesh as mesh_mod
+
+    r = mesh.rank
+    x = torch.tensor([1.0, 2.0], requires_grad=True) * (r + 1)
+    x.retain_grad()
+    y = mesh_mod.all_reduce_sum(x)
+    (y * torch.tensor([3.0, 5.0]) * (r + 1)).sum().backward()
+    lin = torch.nn.Linear(2, 1)
+    with torch.no_grad():
+        lin.weight.fill_(1.0)
+        lin.bias.fill_(0.0)
+    lin.weight.grad = torch.full((1, 2), float(r + 1))  # the bias has no gradient
+    extra = mesh_mod.all_reduce_grads(list(lin.parameters()), torch.tensor([r + 1.0]))
+    return {"y": y.detach().numpy(), "x_grad": x.grad.numpy(),
+            "weight_grad": lin.weight.grad.numpy(), "bias_grad": lin.bias.grad.numpy(),
+            "extra": extra.numpy(),
+            "rows": mesh_mod.gather_rows(torch.full((2, 3), float(r)), mesh).numpy(),
+            "gather_host": mesh_mod.gather_host(10.0 + r), "lead_value": mesh_mod.lead_value(7.0 + r),
+            "world": mesh_mod.world(), "rank": mesh_mod.rank(), "is_lead": mesh_mod.is_lead(),
+            "data_mesh": mesh_mod.data_mesh()}
+
+
+def task_stall(task, mesh):
+    """Rank 1 never joins the collective."""
+    if mesh.rank == 1:
+        time.sleep(3600)
+    t = torch.ones(1)
+    dist.all_reduce(t)
+    return float(t)
+
+
+TASKS = {"steps": task_steps, "stall": task_stall, "collectives": task_collectives, "bn_grad": task_bn_grad,
+         "trainer": task_trainer, "streams": task_streams, "multiseed": task_multiseed}
+
+
+def main(argv) -> None:
+    d, rank, world = Path(argv[0]), int(argv[1]), int(argv[2])
+    torch.set_num_threads(1)
+    task = torch.load(d / "task.pt", weights_only=False)
+    dist.init_process_group("gloo", init_method=f"file://{d / 'store'}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=task.get("timeout", 120)))
+    try:
+        out = TASKS[task["kind"]](task, Mesh(world, rank))
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, d / f"out_{rank}.pt")
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

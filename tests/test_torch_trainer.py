@@ -2,7 +2,8 @@
 core/{checkpoint,job}.py) on the CPU: its click command against the JAX
 command, an end-to-end run on a tiny synthetic VOC tree (2 epochs x 3
 iterations of a tiny DeepLab v2), --resume as a bit-exact continuation, and
-the refusal of every option the port does not run yet."""
+the refusal, before data loads, of every option the port does not run yet
+and of what the JAX trainer refuses at the world size."""
 
 import json
 import os
@@ -20,6 +21,7 @@ from cutmix_seg_tpu_torch.data.synthetic import write_config, write_voc_tree
 from cutmix_seg_tpu_torch.models import registry
 from cutmix_seg_tpu_torch.models.common import SegModel
 from cutmix_seg_tpu_torch.models.deeplab2 import DeepLab2, _param_label
+from cutmix_seg_tpu_torch.parallel import mesh
 from cutmix_seg_tpu_torch.train import engine
 from cutmix_seg_tpu_torch.train import mask_mt
 
@@ -135,12 +137,14 @@ def test_checkpoint_restores_the_saved_state(voc, tmp_path):
             assert torch.equal(restored[part][k], v), (part, k)
 
 
-REFUSED = {  # case: (overrides, the exception, its message)
-    "n_devices": (dict(n_devices=2), NotImplementedError, "ROADMAP A6"),
-    "eval_spatial": (dict(eval_spatial=True), NotImplementedError, "ROADMAP A6"),
-    "spatial_train": (dict(spatial_train=2), NotImplementedError, "ROADMAP A6"),
+REFUSED = {  # case: (overrides, world size, the exception, its message)
+    # --n_devices must be the world size (one GPU per process)
+    "n_devices": (dict(n_devices=2), 1, ValueError, "--n_devices 2 does not match"),
+    # spatial eval runs with one process only, as JAX's multi-host trainer
+    "eval_spatial": (dict(eval_spatial=True), 2, ValueError, "single-host only"),
+    "spatial_train": (dict(spatial_train=2), 1, NotImplementedError, "ROADMAP A6b"),
     # every JAX --arch is in the port: a name in neither registry
-    "arch_not_ported": (dict(arch="resnet18_fcn"), KeyError, "unknown architecture"),
+    "arch_not_ported": (dict(arch="resnet18_fcn"), 1, KeyError, "unknown architecture"),
 }
 
 
@@ -150,7 +154,8 @@ def test_left_out_options_raise_before_data_loads(case, tmp_path, monkeypatch):
         raise AssertionError("data loaded before the option was refused")
 
     monkeypatch.setattr(engine.datasets, "load_dataset", no_data)
-    overrides, exc, match = REFUSED[case]
+    overrides, world, exc, match = REFUSED[case]
+    monkeypatch.setattr(mesh, "world", lambda: world)
     with pytest.raises(exc, match=match):
         _submit(tmp_path / "results", case, **overrides)
 

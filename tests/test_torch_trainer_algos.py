@@ -27,6 +27,7 @@ from cutmix_seg_tpu.train import vat_mt as jvat_mt
 from cutmix_seg_tpu_torch.aug.params import GeomConfig
 from cutmix_seg_tpu_torch.core import job
 from cutmix_seg_tpu_torch.data import datasets, loader
+from cutmix_seg_tpu_torch.parallel import mesh
 from cutmix_seg_tpu_torch.train import aug_mt, engine, ict, vat_mt
 from tests.test_cli_parity import _AUG_MT, _ICT, _VAT_MT
 from tests.test_torch_trainer import REFUSED, TINY_ARCH, _options, voc  # noqa: F401
@@ -168,7 +169,8 @@ def test_left_out_options_raise_before_data_loads(name, case, tmp_path, monkeypa
         raise AssertionError("data loaded before the option was refused")
 
     monkeypatch.setattr(engine.datasets, "load_dataset", no_data)
-    overrides, exc, match = REFUSED[case]
+    overrides, world, exc, match = REFUSED[case]
+    monkeypatch.setattr(mesh, "world", lambda: world)
     with pytest.raises(exc, match=match):
         _submit(name, tmp_path / "results", case, **overrides)
 
