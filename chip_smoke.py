@@ -94,11 +94,26 @@ Phases, in order; any failure exits non-zero before the result lines:
      that CutMix line (1 epoch x 5 iterations): both seeds' epoch lines and
      the aggregate, 10 kernel launches, each seed's checkpoint, ms/iteration
      and the peak with two states resident;
-  8. the kernel summary line and, last, the device line.
+  8. spatial partitioning (--spatial_train, --eval_spatial at world 2), two
+     rank processes sharing the card over gloo: 8a the tiny DeepLab v2's
+     CutMix and Cutout steps (f32, TF32 off, 2 steps, 36-row crops whose
+     feature maps split unevenly and whose ASPP windows reach past the
+     neighbouring rank) with each image's rows split over the ranks,
+     against one process on the same batch: ranks bit-identical, within
+     phase 3's bounds, one launch per rank per CutMix step; 8b the
+     Cityscapes CutMix line (phase 6d's flags and converted frames) with
+     --spatial_train 2 and --eval_spatial through job.submit, 2 epochs x 3
+     iterations: the epoch line, epoch 2's ms/iteration, each rank's peak
+     memory beside the same line at world 1 in this process, the launches;
+     8c that run's eval net over the val frames at 512x1024, rows split
+     over the ranks, against the world-1 eval: the differing pixels (each
+     must be a near tie of world 1's logits), the confusion matrices and
+     the eval ms;
+  9. the kernel summary line and, last, the device line.
 
 Imports nothing of JAX: it runs where only PyTorch and the CUDA toolkit are.
 ``python3 chip_smoke.py --rank-of <kind> <dir> ...`` is a rank process of
-phase 7, started by the script itself.
+phase 7 or 8, started by the script itself.
 """
 
 from __future__ import annotations
@@ -154,7 +169,9 @@ from cutmix_seg_tpu_torch.ops.colour import (
 )
 from cutmix_seg_tpu_torch.ops.cutmix import KERNEL, cutmix_blend, cutmix_blend_plain
 from cutmix_seg_tpu_torch.ops.iou import confusion_matrix
+from cutmix_seg_tpu_torch.eval.evaluator import normalise_eval_batch
 from cutmix_seg_tpu_torch.parallel.mesh import data_mesh, local_rows, maybe_initialize_distributed
+from cutmix_seg_tpu_torch.parallel.spatial import gather_h, set_spatial, slice_h
 from cutmix_seg_tpu_torch.semisup.aug_cons import AugConsConfig, make_aug_cons_step
 from cutmix_seg_tpu_torch.semisup.ict import ICTConfig, make_ict_step, sample_beta
 from cutmix_seg_tpu_torch.semisup.mask_mt import MaskConsistencyConfig, make_mask_mt_step
@@ -1724,13 +1741,254 @@ def phase_multi_seed(voc_root: str, trainer_ms: float) -> dict:
     return {"launches": launches, "ms_per_iter": ms, "peak_mem_gib": peak, "aggregate": agg[0]}
 
 
+# phase 8: spatial partitioning. 8a: name -> ((global n, h, w), config); 36
+# rows give feature maps of 18, 10 and 5 rows (5/5 and 3/2 over the two
+# ranks: the ASPP's dilation 6 reaches past the neighbouring rank)
+SPATIAL_CASES = {
+    "deeplab2 cutmix": ((2, 36, 33), MaskConsistencyConfig(conf_thresh=0.34)),
+    "deeplab2 cutout per-pixel gate": ((2, 36, 33), MaskConsistencyConfig(
+        mask_mode="zero", conf_thresh=0.34, conf_per_pixel=True)),
+}
+SPATIAL_STEPS = 2
+# 8b: the Cityscapes CutMix line, 2 epochs of SPATIAL_ITERS iterations (the
+# first pays cuDNN's choice of algorithms for the ranks' shapes; the second
+# is timed)
+SPATIAL_ITERS = 3
+SPATIAL_FLAGS = CITYSCAPES_CUTMIX + [f"--iters_per_epoch={SPATIAL_ITERS}", "--num_epochs=2"]
+
+
+def _spatial_case(name: str, mesh) -> tuple:
+    """An 8a case on cuda:0: over ``mesh`` (each rank its rows of the
+    images) or, with None, the whole batch in one process: _run_tiny's
+    (metrics, tensors)."""
+    (n, h, w), cfg = SPATIAL_CASES[name]
+    rng = np.random.RandomState(9)
+    nb = _tiny_batch("mask_mt", n, h, w, rng)
+    if cfg.mask_mode == "zero":
+        nb = {"sup_x": nb["sup_x"], "sup_y": nb["sup_y"], "ux_tea": nb["ux0_tea"],
+              "ux_stu": nb["ux0_stu"], "um": nb["um0"]}
+    draws = [_tiny_draws("mask_mt", n, h, w, rng) for _ in range(SPATIAL_STEPS)]
+    local = {k: local_rows(v, mesh) for k, v in nb.items()}
+    make = lambda model, opt, c: make_mask_mt_step(model, opt, c, mesh)  # noqa: E731
+    return _run_tiny("cuda", _tiny_weights(8), _tiny_deeplab2, cfg, make, local, draws)
+
+
+def _spatial_steps_rank() -> dict:
+    """One rank of 8a: gloo on the one card, the images' rows split over
+    the two ranks (--spatial_train 2)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    maybe_initialize_distributed("cuda:0", backend="gloo")
+    try:
+        mesh = data_mesh(2)
+        build.launch_counts.clear()
+        runs = {name: _spatial_case(name, mesh) for name in SPATIAL_CASES}
+        return {"runs": runs, "launches": build.launch_counts.get(KERNEL, 0),
+                "backend": dist.get_backend(), "mesh": tuple(mesh)}
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_spatial_steps(tmp: str) -> dict:
+    """8a: the tiny CutMix and Cutout steps with each image's rows split
+    over two ranks sharing the card, against one process on the card over
+    the same batch (f32, TF32 off)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks("spatial_steps", 2, tmp, 600)
+    t_ranks = time.perf_counter() - t0
+    if any(r["backend"] != "gloo" or r["mesh"] != (2, i, 2) for i, r in enumerate(ranks)):
+        raise RuntimeError("8a: the ranks did not run as two gloo ranks of one image")
+    for name in SPATIAL_CASES:
+        (m0, t0_), (m1, t1_) = ranks[0]["runs"][name], ranks[1]["runs"][name]
+        if m0 != m1 or not all(torch.equal(a[k], b[k]) for a, b in zip(t0_, t1_) for k in a):
+            raise RuntimeError(f"8a {name}: the ranks' states differ")
+        one = _spatial_case(name, None)
+        (n, h, w), _ = SPATIAL_CASES[name]
+        _check_small_run(f"H split over 2 ranks {name}",
+                         {"cpu": one, "cuda": ranks[0]["runs"][name]}, n * h * w,
+                         SPATIAL_STEPS, 3e-4, labels=("one process", "2 ranks"))
+    per_rank = [r["launches"] for r in ranks]
+    n_mix = sum(cfg.mask_mode == "mix" for _, cfg in SPATIAL_CASES.values())
+    if per_rank != [n_mix * SPATIAL_STEPS] * 2:
+        raise RuntimeError(f"8a: {per_rank} {KERNEL} launches per rank, expected "
+                           f"{n_mix * SPATIAL_STEPS} each")
+    note(f"[spatial] 8a: {sorted(SPATIAL_CASES)} at 2 images of 36x33 (feature maps of 18, 10, "
+         f"5 rows) with the rows split over two gloo ranks on one card: ranks bit-identical "
+         f"after each of {SPATIAL_STEPS} steps, within phase 3's bounds of one process; "
+         f"{per_rank} {KERNEL} launches per rank (one per CutMix step, on the full crops); the "
+         f"ranks took {t_ranks:.1f} s with their start-up")
+    return {"launches": sum(per_rank), "ranks_s": t_ranks}
+
+
+def _val_predictions(engine, mesh, split: bool) -> tuple:
+    """The eval net's predictions (N, H, W) of the val frames on every rank
+    (under ``split`` each rank predicting its rows), their labels, the
+    pass's time in ms, and the first batch's logits (gathered by rows)."""
+    preds, labels, logits = [], [], None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in common.eval_batches_over(engine.ds, engine.val_ndx, engine.p["batch_size"],
+                                          engine.model.block_size, mesh, split):
+        n = batch["count"]
+        pred = common.predict_batch(engine.eval_net(), batch, engine.mean, engine.std,
+                                    engine.device, mesh, split)
+        preds.append(pred[:n].cpu())
+        labels.append(torch.from_numpy(batch["labels"][:n]).long())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    batch = next(common.eval_batches_over(engine.ds, engine.val_ndx, engine.p["batch_size"],
+                                          engine.model.block_size, mesh, split))
+    placed = common.to_device({k: batch[k] for k in ("canvas", "labels", "sizes")},
+                              engine.device)
+    x, _, _ = normalise_eval_batch(placed, engine.mean, engine.std)
+    net = engine.eval_net()
+    with torch.no_grad(), eval_mode(net):
+        if split:
+            set_spatial(net, mesh)
+            logits = gather_h(net(slice_h(x, mesh)).float(), x.shape[1], mesh)
+            set_spatial(net, None)
+        else:
+            logits = net(x).float()
+    return torch.cat(preds), torch.cat(labels), ms, logits[:batch["count"]].cpu()
+
+
+def _spatial_trainer_rank(results: str) -> dict:
+    """One rank of 8b and 8c: the Cityscapes CutMix line through job.submit
+    with --spatial_train 2 and --eval_spatial over two gloo ranks sharing
+    the card; then the val frames' predictions, rows split over the ranks."""
+    maybe_initialize_distributed("cuda:0", backend="gloo")
+    try:
+        rank = dist.get_rank()
+        torch.cuda.reset_peak_memory_stats()
+        params = _parse_flags(SPATIAL_FLAGS + ["--spatial_train=2", "--eval_spatial"])
+        build.launch_counts.clear()
+        engine = job.submit("chip_smoke_spatial", "spatial", train_seg_semisup_mask_mt,
+                            dict(params, device="cuda:0"), results_root=results)
+        launches = build.launch_counts.get(KERNEL, 0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        mesh, split = common.eval_layout(engine.mesh, True)
+        dist.barrier()  # rank 0 has written its checkpoint
+        preds, _, eval_ms, logits = _val_predictions(engine, mesh, split)
+        out = {"launches": launches, "peak_mem_gib": peak, "eval_ms": eval_ms,
+               "mesh": tuple(engine.mesh), "backend": dist.get_backend(),
+               "step": engine.state.step, "run_dir": engine.ctx.run_dir, "preds": preds}
+        if rank == 0:
+            torch.save({"teacher": engine.eval_net().state_dict(), "logits": logits},
+                       os.path.join(results, "spatial_eval.pt"))
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_spatial_trainer(tmp: str, voc_root: str) -> dict:
+    """8b: the Cityscapes CutMix line at full width (R101, frozen BN, bs 4,
+    256x512 crops, 19 classes, bf16) with --spatial_train 2 over two gloo
+    ranks sharing the card, beside the same line at world 1 in this
+    process; 8c: --eval_spatial at world 2 on that model over the val
+    frames (512x1024) against the world-1 eval."""
+    os.environ["CUTMIX_SEG_CONFIG"] = write_config(
+        os.path.join(tmp, "seg_spatial.cfg"), voc_root,
+        cityscapes_zip=os.path.join(tmp, "cityscapes.zip"))
+    settings._config = None
+    results = os.path.join(tmp, "results_spatial")
+    os.makedirs(results, exist_ok=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    world1, launches1, log1 = _run_trainer(results, SPATIAL_FLAGS, None, desc="world1")
+    peak1 = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses1 = _epoch_line(log1, 2)
+    with open(os.path.join(world1.ctx.run_dir, "metrics_world1.jsonl")) as f:
+        rec1 = json.loads(f.readlines()[-1])
+    del world1
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks("spatial_trainer", 2, results, 900)
+    t_ranks = time.perf_counter() - t0
+    if any(r["backend"] != "gloo" or r["mesh"] != (2, i, 2) for i, r in enumerate(ranks)):
+        raise RuntimeError("8b: the ranks did not run as two gloo ranks of one image")
+    run_dir = ranks[0]["run_dir"]
+    with open(os.path.join(run_dir, "log_spatial.txt")) as f:
+        log = f.read()
+    losses = _epoch_line(log, 2)
+    with open(os.path.join(run_dir, "metrics_spatial.jsonl")) as f:
+        rec = json.loads(f.readlines()[-1])
+    per_rank = [r["launches"] for r in ranks]
+    n = 2 * SPATIAL_ITERS
+    if per_rank != [n] * 2 or launches1 != n or any(r["step"] != n for r in ranks):
+        raise RuntimeError(f"8b: {per_rank} {KERNEL} launches per rank and {launches1} at "
+                           f"world 1, expected {n} each")
+    ms, ms1 = (r["train_time"] / SPATIAL_ITERS * 1e3 for r in (rec, rec1))
+    peaks = [r["peak_mem_gib"] for r in ranks]
+    note(f"[spatial] 8b: Cityscapes CutMix line (R101, frozen BN, bs 4, 256x512, 19 classes, "
+         f"bf16) with --spatial_train 2 over two gloo ranks on one card: epoch 2 {losses}, VAL "
+         f"mIoU {rec['val_miou']:.4f} (--eval_spatial); epoch 2 {ms:.2f} ms/iteration; peak "
+         f"memory per rank {peaks[0]:.2f} / {peaks[1]:.2f} GiB; {per_rank} {KERNEL} launches "
+         f"per rank in {n} iterations; the ranks took {t_ranks:.1f} s with their start-up. "
+         f"World 1 in this call: epoch 2 {losses1}, VAL mIoU {rec1['val_miou']:.4f}; epoch 2 "
+         f"{ms1:.2f} ms/iteration; peak {peak1:.2f} GiB; {launches1} launches")
+
+    # 8c: the spatial run's eval net at world 1 over the same val frames
+    params = _parse_flags(SPATIAL_FLAGS)
+    spec, cfg = build_spec(params)
+    engine = TrainEngine(job.RunContext(os.path.join(results, "eval1"), "eval1"), spec, cfg,
+                         params)
+    if not engine.setup():
+        raise RuntimeError("8c: the world-1 engine's setup failed")
+    saved = torch.load(os.path.join(results, "spatial_eval.pt"))
+    engine.eval_net().load_state_dict(saved["teacher"])
+    _val_predictions(engine, None, False)  # cuDNN's choice for the full frames
+    pred1, labels, eval_ms1, logits1 = _val_predictions(engine, None, False)
+    pred2 = ranks[0]["preds"]
+    if not torch.equal(pred2, ranks[1]["preds"]) or pred2.shape != pred1.shape:
+        raise RuntimeError("8c: the ranks' gathered predictions differ")
+    cm1, cm2 = (confusion_matrix(p, labels, 19) for p in (pred1, pred2))
+    differ = pred1 != pred2
+    moved = int((cm1 - cm2).abs().sum())
+    if moved > 2 * int(differ.sum()):
+        raise RuntimeError(f"8c: the matrices differ by {moved} counts, more than the "
+                           f"{int(differ.sum())} differing pixels explain")
+    # a pixel's prediction can flip between the two passes only where world
+    # 1's top-two logit margin is within twice their largest logit difference
+    # (measured on the first batch, whose logits both passes kept)
+    n0 = logits1.shape[0]
+    delta = (saved["logits"] - logits1).abs().max().item()
+    top2 = logits1.topk(2, dim=-1).values
+    near_tie = (top2[..., 0] - top2[..., 1]) <= 2 * delta
+    unexplained = int((differ[:n0] & ~near_tie).sum())
+    if unexplained:
+        raise RuntimeError(f"8c: {unexplained} pixels of the first batch flipped with a "
+                           f"top-two margin above 2 x {delta:.3g}")
+    scale = logits1.abs().max().item()
+    note(f"[spatial] 8c: --eval_spatial at world 2 over {pred1.shape[0]} val frames of "
+         f"{tuple(pred1.shape[1:])} (bf16): {int(differ.sum())} of {pred1.numel()} predicted "
+         f"pixels differ from world 1's, confusion matrices "
+         f"{'equal' if moved == 0 else f'{moved} counts apart'}; the first batch's logits "
+         f"differ by at most {delta:.4g} (|logits| up to {scale:.4g}), and each of its "
+         f"{int(differ[:n0].sum())} flipped pixels has a top-two margin within 2 x that "
+         f"({int(near_tie.sum())} such near ties); eval {ranks[0]['eval_ms']:.1f} / "
+         f"{ranks[1]['eval_ms']:.1f} ms per rank beside {eval_ms1:.1f} ms at world 1 (this "
+         f"call, cuDNN warmed)")
+    del engine
+    torch.cuda.empty_cache()
+    return {"launches": per_rank, "launches_world1": launches1, "ms_per_iter": ms,
+            "ms_per_iter_world1": ms1, "peak_mem_gib": peaks, "peak_mem_gib_world1": peak1,
+            "eval_ms": [r["eval_ms"] for r in ranks], "eval_ms_world1": eval_ms1,
+            "pixels_differ": int(differ.sum()), "cm_counts_apart": moved,
+            "logit_delta": delta, "ranks_s": t_ranks}
+
+
 def rank_main(argv) -> int:
     """A rank process of phase 7a (two cards; ``out_dir`` is the results
-    root) or 7b."""
+    root), 7b, 8a or 8b."""
     kind, out_dir = argv
     rank = int(os.environ["RANK"])
-    out = _ddp_trainer_rank(out_dir) if kind == "ddp_trainer" else _ddp_steps_rank()
-    torch.save(out, os.path.join(out_dir, f"{kind}_{rank}.pt"))
+    run = {"ddp_trainer": lambda: _ddp_trainer_rank(out_dir), "ddp_steps": _ddp_steps_rank,
+           "spatial_steps": _spatial_steps_rank,
+           "spatial_trainer": lambda: _spatial_trainer_rank(out_dir)}[kind]
+    torch.save(run(), os.path.join(out_dir, f"{kind}_{rank}.pt"))
     return 0
 
 
@@ -1740,7 +1998,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    phase_build()
+    smi = phase_build()["nvidia_smi"]
     k = phase_kernel_vs_plain()
     phase_small_step()
     phase_small_step_families()
@@ -1792,6 +2050,11 @@ def main() -> int:
         ddp_steps = phase_ddp_steps(tmp)
         multi_seed = phase_multi_seed(voc_root, trainer["ms_per_iter"])
         note(f"[phase 7] {time.perf_counter() - t7:.1f} s")
+        torch.cuda.empty_cache()
+        t8 = time.perf_counter()
+        spatial_steps = phase_spatial_steps(tmp)
+        spatial_trainer = phase_spatial_trainer(tmp, voc_root)
+        note(f"[phase 8] {time.perf_counter() - t8:.1f} s")
     kernels = [{
         "name": KERNEL, "route": "cuda",
         "source": "cutmix_seg_tpu_torch/csrc/cutmix_blend.cu",
@@ -1823,7 +2086,15 @@ def main() -> int:
                                  recipes["voc_on"]["launches"],
                              "trainer DDP (phase 7a)": ddp["launches"],
                              "step 2 ranks gloo (phase 7b)": ddp_steps["launches"],
-                             "trainer multi-seed K=2 (phase 7c)": multi_seed["launches"]},
+                             "trainer multi-seed K=2 (phase 7c)": multi_seed["launches"],
+                             "step H split over 2 ranks gloo (phase 8a)":
+                                 spatial_steps["launches"],
+                             "trainer Cityscapes cutmix --spatial_train 2, rank 0 (phase 8b)":
+                                 spatial_trainer["launches"][0],
+                             "trainer Cityscapes cutmix --spatial_train 2, rank 1 (phase 8b)":
+                                 spatial_trainer["launches"][1],
+                             "trainer Cityscapes cutmix world 1 (phase 8b)":
+                                 spatial_trainer["launches_world1"]},
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
         "kernel_us": k["ms"] * 1e3, "plain_us": k["plain_ms"] * 1e3,
@@ -1835,6 +2106,7 @@ def main() -> int:
         "bound_ms_city": k["bound_ms_city"], "bound_ms_city_bf16": k["bound_ms_city_bf16"],
     }]
     note(f"[done] {time.perf_counter() - t_start:.1f} s")
+    note(smi)  # again beside the results: the tail of the output is what is kept
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -30,6 +31,11 @@ from torch import nn
 from torch.nn import functional as F
 
 from cutmix_seg_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
+from cutmix_seg_tpu_torch.parallel.spatial import (
+    SpatialRows,
+    interp_matrix_align_corners,
+    split_rows,
+)
 
 # Standard normalisation statistics.
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406])
@@ -89,6 +95,7 @@ class Conv2d(nn.Conv2d):
             raise ValueError(f"unknown conv initialiser {init!r}")
         self.init = init  # read by reset_parameters inside nn.Conv2d's init
         super().__init__(*args, **kwargs)
+        self.spatial: Optional[SpatialRows] = None  # set_spatial: H split over ranks
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         with torch.no_grad():
@@ -104,8 +111,27 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
+        weight = self.weight.to(x.dtype)
+        if self.spatial is not None:
+            return self._forward_rows(x, weight, bias, self.spatial)
+        return F.conv2d(x, weight, bias, self.stride,
                         self.padding, self.dilation, self.groups)
+
+    def _forward_rows(self, x, weight, bias, rows: SpatialRows) -> torch.Tensor:
+        """This rank's output rows: the input rows they read (output rows x
+        stride -/+ the padding and the dilated extent), zero outside the
+        image, convolved with no H padding."""
+        if rows.tracing:
+            y = F.conv2d(x, weight.to("meta"), None if bias is None else bias.to("meta"),
+                         self.stride, self.padding, self.dilation, self.groups)
+            rows.record(x.shape[2], y.shape[2])
+            return y
+        h_in, h_out = rows.next_op(x.shape[2])
+        s, p, reach = self.stride[0], self.padding[0], self.dilation[0] * (self.kernel_size[0] - 1)
+        win = rows.window(x, h_in, [(lo * s - p, (hi - 1) * s - p + reach + 1)
+                                    for lo, hi in split_rows(h_out, rows.ways)], 0.0)
+        return F.conv2d(win, weight, bias, self.stride, (0, self.padding[1]),
+                        self.dilation, self.groups)
 
 
 class BatchNorm2d(nn.Module):
@@ -153,6 +179,8 @@ class BatchNorm2d(nn.Module):
             self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.is_meta:  # a spatial trace of the heights (parallel.spatial)
+            return x
         if not self.training or self.freeze:
             return self._affine(x, self.running_mean, self.running_var)
         x32 = x.float()
@@ -270,34 +298,81 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
 
 
 def max_pool_ceil(x: torch.Tensor, window: int, stride: int,
-                  padding: int) -> torch.Tensor:
+                  padding: int, spatial: Optional[SpatialRows] = None) -> torch.Tensor:
     """Max pool with ceil-mode output size (NHWC in and out).
 
     The JAX version pads symmetrically, then adds the right/bottom padding
     the ceil size needs; torch's ceil_mode also drops a last window that
     would start inside the right padding. Both agree unless that happens,
-    so such a configuration raises instead of silently differing."""
+    so such a configuration raises instead of silently differing.
+
+    With ``spatial`` (x: this rank's rows), the rows of this rank's output
+    windows come through the row exchange, -inf outside the image (JAX's
+    padding), and pool with no H padding."""
     n, h, w, c = x.shape
-    for s in (h, w):
+    xc = x.permute(0, 3, 1, 2)
+    live = spatial is not None and not spatial.tracing
+    h_in, h_out = spatial.next_op(h) if live else (h, None)
+    for s in (h_in, w):
         out = -(-(s + 2 * padding - window) // stride) + 1
         if (out - 1) * stride >= s + padding:
             raise ValueError(
                 f"max_pool_ceil(window={window}, stride={stride}, "
                 f"padding={padding}) at size {s}: torch drops a window the "
                 "reference keeps")
-    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride, padding,
-                     ceil_mode=True)
+    if not live:
+        y = F.max_pool2d(xc, window, stride, padding, ceil_mode=True)
+        if spatial is not None:
+            spatial.record(h, y.shape[2])
+        return y.permute(0, 2, 3, 1)
+    win = spatial.window(xc, h_in, [(lo * stride - padding, (hi - 1) * stride - padding + window)
+                                    for lo, hi in split_rows(h_out, spatial.ways)],
+                         float("-inf"))
+    y = F.max_pool2d(win, window, stride, (0, padding), ceil_mode=True)
     return y.permute(0, 2, 3, 1)
 
 
-def upsample_bilinear_align_corners(x: torch.Tensor,
-                                    out_hw: Tuple[int, int]) -> torch.Tensor:
-    """Bilinear resize with align_corners=True (NHWC in and out)."""
-    if tuple(x.shape[1:3]) == tuple(out_hw):
+def upsample_bilinear_align_corners(x: torch.Tensor, out_hw: Tuple[int, int],
+                                    spatial: Optional[SpatialRows] = None) -> torch.Tensor:
+    """Bilinear resize with align_corners=True (NHWC in and out).
+
+    With ``spatial`` (x: this rank's rows; ``out_hw``'s height is replaced
+    by the traced global one), this rank's output rows are computed as the
+    JAX package computes every row: a product with this rank's rows of the
+    global interpolation matrix over H (the source rows through the row
+    exchange), then one over W, each in x's dtype (a lower dtype
+    accumulates in float32)."""
+    if spatial is None or spatial.tracing:
+        y = x
+        if tuple(x.shape[1:3]) != tuple(out_hw):
+            y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(out_hw),
+                              mode="bilinear", align_corners=True).permute(0, 2, 3, 1)
+        if spatial is not None:
+            spatial.record(x.shape[1], y.shape[1])
+        return y
+    h_in, h_out = spatial.next_op(x.shape[1])
+    if (h_in, x.shape[2]) == (h_out, out_hw[1]):
         return x
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(out_hw),
-                      mode="bilinear", align_corners=True)
-    return y.permute(0, 2, 3, 1)
+    windows, wys = _align_corners_rows(h_in, h_out, spatial.ways)
+    win = spatial.window(x.permute(0, 3, 1, 2), h_in, windows, 0.0)
+    wy = wys[spatial.index].to(device=x.device, dtype=x.dtype)
+    wx = torch.from_numpy(interp_matrix_align_corners(x.shape[2], out_hw[1])).to(
+        device=x.device, dtype=x.dtype)
+    return torch.einsum("pw,ncow->nopc", wx, torch.einsum("oh,nchw->ncow", wy, win))
+
+
+@functools.lru_cache(maxsize=None)
+def _align_corners_rows(h_in: int, h_out: int, ways: int):
+    """Each model index's window of source rows [a, b) and its rows of the
+    (h_out, h_in) interpolation matrix restricted to them."""
+    mat = torch.from_numpy(interp_matrix_align_corners(h_in, h_out))
+    windows, rows = [], []
+    for lo, hi in split_rows(h_out, ways):
+        used = mat[lo:hi].sum(dim=0).nonzero()[:, 0]
+        a, b = int(used[0]), int(used[-1]) + 1
+        windows.append((a, b))
+        rows.append(mat[lo:hi, a:b])
+    return windows, rows
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:

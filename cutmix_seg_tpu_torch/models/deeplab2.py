@@ -9,6 +9,9 @@ cutmix_seg_tpu.models.deeplab2).
   checkpoint), take no gradient and pass through the EMA;
 * bilinear align_corners upsampling of the logits to the input size.
 
+Under ``parallel.spatial.set_spatial`` the image H axis is split over ranks:
+the convs, the stem pool and the upsample take and give this rank's rows.
+
 ``dtype`` is the compute dtype; parameters stay float32. Logits come back
 NHWC in the compute dtype (the losses upcast inside).
 """
@@ -55,6 +58,10 @@ class ASPPSum(nn.Module):
 
 
 class DeepLab2(ResNetBackbone):
+    # every cross-row operation has a spatial form (parallel.spatial): the
+    # convs, the stem's ceil-mode pool and the align-corners upsample
+    supports_spatial = True
+
     def __init__(self, num_classes: int, layers: Sequence[int] = (3, 4, 23, 3),
                  aspp_branches_used: int = 2,
                  dtype: Optional[torch.dtype] = None):
@@ -64,11 +71,15 @@ class DeepLab2(ResNetBackbone):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, H, W, 3) -> (N, H, W, num_classes) logits."""
+        """(N, H, W, 3) -> (N, H, W, num_classes) logits (under
+        ``set_spatial``: this rank's rows of each)."""
+        if self.spatial is not None:
+            self.spatial.begin(self, x)
         in_hw = tuple(x.shape[1:3])
         x = x.to(self.dtype or x.dtype).permute(0, 3, 1, 2)
         logits = self.layer5(self.features(x))
-        return upsample_bilinear_align_corners(logits.permute(0, 2, 3, 1), in_hw)
+        return upsample_bilinear_align_corners(logits.permute(0, 2, 3, 1), in_hw,
+                                               spatial=self.spatial)
 
 
 def _param_label(module: nn.Module):

@@ -72,6 +72,7 @@ class ResNetBackbone(nn.Module):
         if style not in ("deeplab2", "torchvision"):
             raise ValueError(f"unknown ResNet style {style!r}")
         self.torchvision_style = style == "torchvision"
+        self.spatial = None  # set_spatial: the stem pool's H split over ranks
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False, init="normal")
         self.bn1 = BatchNorm2d(64)
         inplanes, prev_dilation = 64, 1
@@ -96,7 +97,7 @@ class ResNetBackbone(nn.Module):
             y = F.max_pool2d(y, 3, 2, 1)
         else:
             y = max_pool_ceil(y.permute(0, 2, 3, 1), window=3, stride=2,
-                              padding=1).permute(0, 3, 1, 2)
+                              padding=1, spatial=self.spatial).permute(0, 3, 1, 2)
         for li in range(1, self.n_stages + 1):
             y = out[f"layer{li}"] = getattr(self, f"layer{li}")(y)
         return out

@@ -24,6 +24,12 @@ of the multi-seed trainer). Under a mesh:
   * training BN all-reduces its sums through ``all_reduce_sum``, whose
     backward all-reduces the gradient.
 
+With ``n_model`` > 1 ranks to an image (``--spatial_train``;
+``parallel.spatial``) the ranks form JAX's 2-D ('data', 'model') mesh,
+model minor: the rows of the global batch follow the data index
+(``local_rows``), the S ranks of a data index split each image's H axis,
+and every sum over pixels stays an all-reduce over the whole world.
+
 Only ``all_reduce`` is used: it is what gloo runs on CUDA tensors too, so
 two ranks can share one card over gloo. Per-rank host values are gathered
 with an all-reduce of a zero-padded vector.
@@ -74,30 +80,48 @@ def is_lead() -> bool:
 
 class Mesh(NamedTuple):
     """The ranks a step runs over: ``size`` processes of the default group,
-    this one ``rank``."""
+    this one ``rank``, laid out as JAX's ('data', 'model') mesh with the
+    model axis minor: ``n_model`` ranks split each image's H axis
+    (``parallel.spatial``), and rank r has data index r // n_model and model
+    index r % n_model. At ``n_model`` 1 the data index is the rank."""
 
     size: int
     rank: int
+    n_model: int = 1
+
+    @property
+    def n_data(self) -> int:
+        return self.size // self.n_model
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.n_model
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.n_model
 
 
-def data_mesh() -> Optional[Mesh]:
-    """The whole process group as a Mesh; None without a group."""
-    return Mesh(world(), rank()) if dist.is_initialized() else None
+def data_mesh(n_model: int = 1) -> Optional[Mesh]:
+    """The whole process group as a Mesh (``n_model`` ranks to an image);
+    None without a group."""
+    return Mesh(world(), rank(), n_model) if dist.is_initialized() else None
 
 
 def global_rows(n_local: int, mesh: Optional[Mesh]) -> int:
-    return n_local * (1 if mesh is None else mesh.size)
+    return n_local * (1 if mesh is None else mesh.n_data)
 
 
 def local_rows(x, mesh: Optional[Mesh]):
     """This rank's rows of a global array (the counterpart of
-    ``shard_batch``): rows [r*n, (r+1)*n) with n = len(x) / size."""
+    ``shard_batch`` over the 'data' axis): rows [d*n, (d+1)*n) with d the
+    data index and n = len(x) / n_data."""
     if mesh is None:
         return x
-    n, rem = divmod(x.shape[0], mesh.size)
+    n, rem = divmod(x.shape[0], mesh.n_data)
     if rem:
-        raise ValueError(f"{x.shape[0]} rows do not split over {mesh.size} ranks")
-    return x[mesh.rank * n:(mesh.rank + 1) * n]
+        raise ValueError(f"{x.shape[0]} rows do not split over {mesh.n_data} ranks")
+    return x[mesh.data_index * n:(mesh.data_index + 1) * n]
 
 
 def eval_slice(batch: dict, mesh: Optional[Mesh]) -> dict:
@@ -151,12 +175,14 @@ def all_reduce_grads(params: Sequence[torch.Tensor],
 
 
 def gather_rows(x_local: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Every rank's rows of a sharded tensor, in rank order, on every rank
-    (a zero-padded all-reduce)."""
+    """Every data index's rows of a batch-sharded tensor, in order, on every
+    rank (a zero-padded all-reduce; the model index 0 rank of each group
+    contributes its rows)."""
     n = x_local.shape[0]
-    out = torch.zeros((n * mesh.size,) + tuple(x_local.shape[1:]), dtype=x_local.dtype,
+    out = torch.zeros((n * mesh.n_data,) + tuple(x_local.shape[1:]), dtype=x_local.dtype,
                       device=x_local.device)
-    out[mesh.rank * n:(mesh.rank + 1) * n] = x_local
+    if mesh.model_index == 0:
+        out[mesh.data_index * n:(mesh.data_index + 1) * n] = x_local
     dist.all_reduce(out)
     return out
 

@@ -23,9 +23,13 @@ options are refused there, as the JAX step refuses them, so the chunks'
 teacher logits and softmax chains are float32.
 
 Over a ``mesh`` of ranks (``parallel.mesh``) the boxes are drawn for the
-global batch and each rank keeps its rows; the kernel runs on the rank's
-slice (the counterpart of ``cutmix_blend_sharded``), and the losses are
-global (``stepcore``).
+global batch and each rank keeps its data index's rows; the kernel runs on
+the rank's slice (the counterpart of ``cutmix_blend_sharded``), and the
+losses are global (``stepcore``). With model ranks (``--spatial_train``,
+``parallel.spatial``) the batch holds the data index's full crops: the
+kernel blends them whole, once per step, and then every image-shaped input
+of the forwards (the crops, labels, teacher inputs, the blend, its mask and
+the loss mask) is cut to this rank's rows.
 
 Metrics stay device tensors (nothing here waits for the device).
 """
@@ -46,6 +50,7 @@ from cutmix_seg_tpu_torch.masks.box_mask import (
 )
 from cutmix_seg_tpu_torch.ops.cutmix import cutmix_blend
 from cutmix_seg_tpu_torch.parallel.mesh import global_rows, local_rows
+from cutmix_seg_tpu_torch.parallel.spatial import slice_h
 from cutmix_seg_tpu_torch.semisup import losses as L
 from cutmix_seg_tpu_torch.semisup.stepcore import (
     ConsistencyCommon,
@@ -132,12 +137,13 @@ def make_mask_mt_step(model, opt, cfg: MaskConsistencyConfig, mesh=None):
                 "grad_accum > 1")
         validate_accum(cfg, "mask_mt")
     use_cons = cfg.cons_weight > 0.0
+    spatial = mesh is not None and mesh.n_model > 1
     ldt = _DTYPES[cfg.cons_compute_dtype]
     sdt = _DTYPES[cfg.loss_softmax_dtype]
     tea_keys = ("ux0_tea", "ux1_tea") if cfg.mask_mode == "mix" else ("ux_tea",)
 
     def step(state: TrainState, batch, ramp, rects=None):
-        teacher = prepare_nets(cfg, state, mesh)
+        teacher = prepare_nets(cfg, state, mesh, spatial=True)
         full = {"sup_x": batch["sup_x"], "sup_y": batch["sup_y"]}
         # ---- mixing geometry over the whole batch, outside the gradient ----
         if use_cons:
@@ -150,6 +156,9 @@ def make_mask_mt_step(model, opt, cfg: MaskConsistencyConfig, mesh=None):
                     f" vs {tuple(x_stu_cons.shape[1:])}")
             full.update({k: batch[k] for k in tea_keys})
             full.update(x_cons=x_stu_cons, m=m, loss_mask=loss_mask.float())
+        if spatial:
+            # the forwards, the blends and the losses run on this rank's rows
+            full = {k: slice_h(v, mesh) for k, v in full.items()}
 
         def one_chunk(c):
             # ---- teacher: all outside the gradient ----

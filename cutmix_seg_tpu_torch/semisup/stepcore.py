@@ -29,6 +29,15 @@ ranks' ``x[k::K]`` (K divides each rank's batch), and the denominators and
 BN statistics are the chunk's. Dropout masks are drawn per rank, from a
 generator folded with the rank and the step.
 
+Spatial partitioning (a mesh with ``n_model`` > 1 ranks to an image,
+``parallel.spatial``; the mask_mt step only): the JAX program is the same
+global one with its activations split on H, so the same global sums hold.
+Rank r holds the rows of model index r % n_model of the images of data
+index r // n_model; the sub-batches count in data indices, a global
+sub-batch's element count is n_model times a rank's rows, and every pixel
+sum (the denominators, BN's statistics, the gradients) stays an all-reduce
+over the whole world, whose ranks hold disjoint pixels.
+
 BN and dropout follow the JAX steps: every forward but VAT's direction net
 runs in train mode, so dropout draws masks (from the state's generator) in
 the teacher too; with training BN (``freeze_bn=False``) each forward
@@ -56,6 +65,7 @@ from cutmix_seg_tpu_torch.models.common import (
     set_freeze_bn,
 )
 from cutmix_seg_tpu_torch.parallel.mesh import Mesh, all_reduce_grads
+from cutmix_seg_tpu_torch.parallel.spatial import A6C, set_spatial
 from cutmix_seg_tpu_torch.semisup import losses as L
 from cutmix_seg_tpu_torch.semisup.ema import ema_update, float_tensors
 
@@ -78,10 +88,10 @@ class ConsistencyCommon:
 
 def _subbatch_of_rows(cfg: ConsistencyCommon, n: int, mesh: Mesh, device) -> torch.Tensor:
     """The global sub-batch of each of this rank's n unsupervised rows: the
-    global batch is [rank 0's n rows | rank 1's | ...], cut into R equal
-    parts."""
-    rows = mesh.rank * n + torch.arange(n, device=device)
-    return rows // (n * mesh.size // cfg.unsup_batch_ratio)
+    global batch is [data index 0's n rows | data index 1's | ...], cut
+    into R equal parts."""
+    rows = mesh.data_index * n + torch.arange(n, device=device)
+    return rows // (n * mesh.n_data // cfg.unsup_batch_ratio)
 
 
 def global_denominators(cfg: ConsistencyCommon, mesh: Mesh, sup_y: torch.Tensor,
@@ -134,7 +144,8 @@ def _masked_consistency_share(cfg, per_px, loss_mask, conf_px, mesh, den):
     R = cfg.unsup_batch_ratio
     n = per_px.shape[0]
     sub = _subbatch_of_rows(cfg, n, mesh, per_px.device)
-    count = n * mesh.size // R * per_px[0].numel()  # elements of a global sub-batch
+    # elements of a global sub-batch (each rank holds 1/n_model of an image's rows)
+    count = n * mesh.n_data // R * per_px[0].numel() * mesh.n_model
 
     def subbatch_share(arr):
         per_row = arr.reshape(n, -1).sum(dim=1)
@@ -230,11 +241,17 @@ def accum_zero_metrics(use_cons: bool, device=None) -> Dict[str, torch.Tensor]:
 
 
 def prepare_nets(cfg: ConsistencyCommon, state: TrainState,
-                 mesh: Optional[Mesh] = None) -> torch.nn.Module:
-    """Set the BN mode (``cfg.freeze_bn``) and mesh, and the dropout
-    generator (the state's; over several ranks, this rank's fold of it) of
-    the student and the teacher for a step; returns the teacher net (the
-    student itself in pi-model mode)."""
+                 mesh: Optional[Mesh] = None, spatial: bool = False) -> torch.nn.Module:
+    """Set the BN mode (``cfg.freeze_bn``) and mesh, the dropout generator
+    (the state's; over several ranks, this rank's fold of it) and the
+    spatial split (``parallel.spatial.set_spatial``: the mesh's model
+    ranks split H) of the student and the teacher for a step; returns the
+    teacher net (the student itself in pi-model mode). A step that has no
+    spatial form (``spatial`` False) refuses a mesh with model ranks."""
+    if mesh is not None and mesh.n_model > 1 and not spatial:
+        raise NotImplementedError(
+            f"not ported yet: this algorithm's step over {mesh.n_model} model ranks "
+            f"(--spatial_train) is {A6C}")
     nets = [state.student] + ([state.teacher] if cfg.mean_teacher else [])
     dropout_gen = state.generator
     if mesh is not None and mesh.size > 1:
@@ -243,6 +260,7 @@ def prepare_nets(cfg: ConsistencyCommon, state: TrainState,
         set_freeze_bn(net, cfg.freeze_bn)
         set_bn_mesh(net, mesh)
         set_dropout_generator(net, dropout_gen)
+        set_spatial(net, mesh)
     return nets[-1]
 
 

@@ -1,7 +1,8 @@
 """Shared trainer plumbing (port of cutmix_seg_tpu.train.common): model,
 optimiser, geometry and colour configuration, the device augmentation of
-host batches, the evaluation pass (alone, or sliced over a mesh of ranks)
-and the NaN bail-out (reference: train_seg_semisup_mask_mt.py:85-144,479-577).
+host batches, the evaluation pass (alone, or sliced over a mesh of ranks by
+images and, with ``--eval_spatial``, by rows) and the NaN bail-out
+(reference: train_seg_semisup_mask_mt.py:85-144,479-577).
 """
 
 from __future__ import annotations
@@ -18,15 +19,17 @@ from cutmix_seg_tpu_torch.aug.params import GeomConfig
 from cutmix_seg_tpu_torch.core.schedules import make_lr_schedule
 from cutmix_seg_tpu_torch.core.train_state import OptimizerConfig
 from cutmix_seg_tpu_torch.data.loader import eval_batches
-from cutmix_seg_tpu_torch.eval.evaluator import eval_confusion, predict
+from cutmix_seg_tpu_torch.eval.evaluator import normalise_eval_batch, predict
 from cutmix_seg_tpu_torch.models import registry
 from cutmix_seg_tpu_torch.ops.colour import (
     ColourJitterConfig,
     ColourParams,
     sample_colour_params,
 )
-from cutmix_seg_tpu_torch.ops.iou import EvaluatorIoU
+from cutmix_seg_tpu_torch.models.common import eval_mode
+from cutmix_seg_tpu_torch.ops.iou import EvaluatorIoU, confusion_matrix
 from cutmix_seg_tpu_torch.parallel import mesh as mesh_mod
+from cutmix_seg_tpu_torch.parallel import spatial as spatial_mod
 from cutmix_seg_tpu_torch.parallel.mesh import Mesh
 
 
@@ -141,8 +144,9 @@ class DeviceAugmentor:
     """Applies the device augmentation to host batches already on the
     device (``to_device``). ``mean``/``std`` are best float32 tensors on
     that device: a host array is copied to the device on every call. Over
-    a ``mesh`` each batch is this rank's rows of the global batch, and the
-    colour draws are made for the global batch and sliced."""
+    a ``mesh`` each batch is this rank's data index's rows of the global
+    batch (full crops: a spatial step cuts its rows of them), and the colour
+    draws are made for the global batch and sliced."""
 
     mean: torch.Tensor
     std: torch.Tensor
@@ -178,23 +182,67 @@ class DeviceAugmentor:
         return out
 
 
-SPATIAL_EVAL_MULTI_HOST = (
-    "--eval_spatial places H-sharded global arrays and is single-host only; "
-    "use batch-parallel eval on pods")
-
-
 def eval_batch_size(batch_size: int, mesh: Optional[Mesh]) -> int:
-    """The eval batch rounded up to a multiple of the ranks, so every rank
-    takes an equal slice (padding is metric-neutral: all-255 labels)."""
-    n = 1 if mesh is None else mesh.size
+    """The eval batch rounded up to a multiple of the data indices, so
+    every one takes an equal slice (padding is metric-neutral: all-255
+    labels)."""
+    n = 1 if mesh is None else mesh.n_data
     return -(-batch_size // n) * n
 
 
 def local_count(count: int, n_local: int, mesh: Optional[Mesh]) -> int:
     """How many of this rank's slice of an eval batch are real images (the
     batch's first ``count`` are)."""
-    first = 0 if mesh is None else mesh.rank * n_local
+    first = 0 if mesh is None else mesh.data_index * n_local
     return min(max(count - first, 0), n_local)
+
+
+def eval_layout(mesh: Optional[Mesh], spatial: bool) -> Tuple[Optional[Mesh], bool]:
+    """(the mesh an eval pass runs over, whether it splits H): alone
+    without a mesh; ``--eval_spatial`` over several ranks splits H
+    (``spatial_mod.eval_mesh``); else the batch is split over the data
+    indices."""
+    if mesh is None or not spatial or mesh.size == 1:
+        return mesh, False
+    return spatial_mod.eval_mesh(mesh), True
+
+
+def eval_batches_over(source, indices, batch_size, block_size, mesh: Optional[Mesh],
+                      spatial: bool):
+    """The eval batches of a pass over ``mesh``: the batch rounded up to the
+    data indices, and under spatial eval H padded to lcm(h_ways, block_h)
+    with zero canvas rows and ignore labels (JAX ``pad_batch_h``)."""
+    h_mult = None
+    if spatial:
+        h_mult = int(np.lcm(spatial_mod.spatial_h_axis_size(mesh), block_size[0]))
+    for batch in eval_batches(source, indices, eval_batch_size(batch_size, mesh), block_size):
+        yield batch if h_mult is None else spatial_mod.pad_batch_h(batch, h_mult)
+
+
+def predict_rows(net, batch, mean, std, device, mesh: Optional[Mesh], spatial: bool):
+    """(pred, y) int64 of this rank's part of a raw eval batch: its data
+    index's images, and under ``spatial`` its rows of them (the net set to
+    split H over the mesh's model ranks)."""
+    local = mesh_mod.eval_slice({k: batch[k] for k in ("canvas", "labels", "sizes")}, mesh)
+    placed = to_device(local, device)
+    spatial_mod.set_spatial(net, mesh if spatial else None)
+    if not spatial:
+        return predict(net, placed, mean, std)
+    x, y, _ = normalise_eval_batch(placed, mean, std)
+    x, y = spatial_mod.slice_h(x, mesh), spatial_mod.slice_h(y, mesh)
+    with torch.no_grad(), eval_mode(net):
+        return net(x).argmax(dim=-1), y
+
+
+def predict_batch(net, batch, mean, std, device, mesh: Optional[Mesh],
+                  spatial: bool) -> torch.Tensor:
+    """The predictions of a whole raw eval batch on every rank: each rank
+    predicts its part (``predict_rows``), then the rows and the images are
+    gathered."""
+    pred, _ = predict_rows(net, batch, mean, std, device, mesh, spatial)
+    if spatial:
+        pred = spatial_mod.gather_h(pred, batch["canvas"].shape[1], mesh)
+    return pred if mesh is None else mesh_mod.gather_rows(pred, mesh)
 
 
 def evaluate(net, source, indices, batch_size, num_classes, mean, std,
@@ -206,26 +254,32 @@ def evaluate(net, source, indices, batch_size, num_classes, mean, std,
     to the host per batch for scipy's hole filling.
 
     Over a ``mesh`` (JAX's batch-parallel eval) the batch is rounded up to
-    a multiple of the ranks, every rank builds the whole batch and
-    evaluates its slice, hole filling (per image) runs on each rank's own
-    predictions, and the confusion matrix is summed over the ranks.
-    ``spatial`` (--eval_spatial) runs with one rank only, where JAX's
-    H-sharded eval is this pass: it pads H to lcm(1, block_h), which the
-    eval batches' block padding already is."""
-    if spatial and mesh is not None and mesh.size > 1:
-        raise ValueError(SPATIAL_EVAL_MULTI_HOST)
+    a multiple of the data indices, every rank builds the whole batch and
+    evaluates its data index's slice (under ``--spatial_train`` the model
+    group's rank 0 alone: JAX's replicated copies count once), hole filling
+    (per image) runs on those slices' predictions, and the confusion matrix
+    is summed over the ranks. ``spatial`` (--eval_spatial) over several
+    ranks splits H as well (``eval_layout``): every rank counts the pixels
+    of its rows, and hole filling gathers the rows first. With one rank
+    JAX's H-sharded eval is the plain pass (H padded to lcm(1, block_h),
+    which the eval batches' block padding already is)."""
+    mesh, spatial = eval_layout(mesh, spatial)
     ev = EvaluatorIoU(num_classes, fill_holes=fill_holes)
     cm = torch.zeros((num_classes, num_classes), dtype=torch.int64, device=device)
-    eval_bs = eval_batch_size(batch_size, mesh)
-    for batch in eval_batches(source, indices, eval_bs, block_size):
-        local = mesh_mod.eval_slice({k: batch[k] for k in ("canvas", "labels", "sizes")}, mesh)
-        placed = to_device(local, device)
-        if fill_holes:
-            pred, y = predict(net, placed, mean, std)
+    lead = mesh is None or mesh.model_index == 0
+    batches = eval_batches_over(source, indices, batch_size, block_size, mesh, spatial)
+    for batch in (batches if lead or spatial else ()):
+        pred, y = predict_rows(net, batch, mean, std, device, mesh, spatial)
+        if not fill_holes:
+            cm += confusion_matrix(pred, y, num_classes)
+            continue
+        if spatial:
+            pred = spatial_mod.gather_h(pred, batch["canvas"].shape[1], mesh)
+        if lead:
             n = local_count(batch["count"], pred.shape[0], mesh)
-            ev.update_batch(pred[:n].cpu().numpy(), y[:n].cpu().numpy())
-        else:
-            cm += eval_confusion(net, placed, num_classes, mean, std)
+            y = mesh_mod.local_rows(batch["labels"], mesh).astype(np.int64)
+            ev.update_batch(pred[:n].cpu().numpy(), y[:n])
+    spatial_mod.set_spatial(net, None)
     if mesh is not None:
         cm += torch.from_numpy(ev.cm).to(device)
         ev.cm[:] = 0

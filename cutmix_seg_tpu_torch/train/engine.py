@@ -9,10 +9,17 @@ supplies an ``AlgorithmSpec``: its step factory and how its unsupervised
 batch is made from the host streams.
 
 Several GPUs (``torchrun --nproc_per_node=N``; ``parallel.mesh``): rank r is
-JAX process r with one device. The global batch is ``batch_size * N``; rank r
-draws its host streams from ``seed + r * 7919`` with ``batch_size`` images,
-and the step, the augmentation's colour draws and the eval are global
-(``parallel.mesh``). Only rank 0 writes the log, the metrics JSONL,
+JAX process r with one device. With ``--spatial_train S`` (``parallel.spatial``;
+the mask_mt step on DeepLab v2) the N ranks are JAX's 2-D mesh of N / S data
+indices by S model ranks, model minor: rank r's data index is r // S, and the
+S ranks of a data index split each image's rows (S = 1: every rank is a data
+index). The global batch is ``batch_size`` times the data indices; data
+index d draws its host streams from ``seed + d * 7919`` with ``batch_size``
+images, its model ranks augment the same full crops and the step cuts their
+rows, and the step, the augmentation's colour draws and the eval are global
+(``parallel.mesh``). ``--eval_spatial`` over several ranks splits the eval
+images' rows too: over the S model ranks, or over every rank without
+``--spatial_train``. Only rank 0 writes the log, the metrics JSONL,
 checkpoints, model.pt and predictions; every rank restores from the shared
 run directory. The step's metrics are already global (summed over the ranks
 with the gradients), so every rank fetches the same sums and bails out on a
@@ -31,10 +38,11 @@ iteration is a ``record_function`` span (trainer.fetch, trainer.copy,
 trainer.augment, trainer.step), so a ``--profile_dir`` trace attributes the
 host's time.
 
-The JAX package's options that the port does not run yet raise at setup,
-before any data loads, naming their ROADMAP item (``check_ported``), as do
-the JAX trainer's own refusals of a mismatched ``--n_devices`` and of
-``--eval_spatial`` over several processes.
+The JAX trainer's own refusals (a crop height that S does not divide, a
+mismatched ``--n_devices``, a world that S does not divide) and the options
+the port does not run yet (spatial partitioning of the other algorithms and
+architectures, naming ROADMAP A6c) raise at setup, before any data loads
+(``check_ported``).
 """
 
 from __future__ import annotations
@@ -55,11 +63,11 @@ from cutmix_seg_tpu_torch.core import job
 from cutmix_seg_tpu_torch.core.train_state import create_train_state
 from cutmix_seg_tpu_torch.data import datasets
 from cutmix_seg_tpu_torch.data import resident as res_mod
-from cutmix_seg_tpu_torch.data.loader import HostBatchBuilder, eval_batches, train_stream
-from cutmix_seg_tpu_torch.eval.evaluator import predict
+from cutmix_seg_tpu_torch.data.loader import HostBatchBuilder, train_stream
 from cutmix_seg_tpu_torch.models import registry
 from cutmix_seg_tpu_torch.ops.iou import EvaluatorIoU
 from cutmix_seg_tpu_torch.parallel import mesh as mesh_mod
+from cutmix_seg_tpu_torch.parallel import spatial
 from cutmix_seg_tpu_torch.semisup.stepcore import ConsistencyCommon, accum_zero_metrics
 from cutmix_seg_tpu_torch.train import common
 from cutmix_seg_tpu_torch.utils.device import resolve_device
@@ -85,21 +93,40 @@ class AlgorithmSpec:
     pair_geom: bool
     fetch: Callable
     compose: Callable
+    spatial: bool = False  # the step has a spatial form (--spatial_train)
 
 
-def check_ported(p: dict) -> None:
-    """Refuse, before any data loads, the options the port does not run
-    yet (naming their ROADMAP item) and what the JAX trainer refuses at
-    this process group's world size."""
+def check_ported(p: dict, spec: AlgorithmSpec) -> int:
+    """Refuse, before any data loads, what the JAX trainer refuses at this
+    process group's world size and then the options the port does not run
+    yet (naming their ROADMAP item); returns the H-split ways S of
+    --spatial_train."""
     registry.get(p["arch"])  # an unknown name raises KeyError
     world = mesh_mod.world()
-    if int(p.get("spatial_train", 1) or 1) > 1:
-        raise NotImplementedError(
-            f"not ported yet: --spatial_train {p['spatial_train']} (spatial "
-            "partitioning across ranks) is ROADMAP A6b")
+    S = int(p.get("spatial_train", 1) or 1)
+    crop_hw = common.parse_crop_size(p["crop_size"])
+    if S > 1 and crop_hw is not None and crop_hw[0] % S != 0:
+        raise ValueError(
+            f"--spatial_train {S} requires the crop height ({crop_hw[0]}) to divide "
+            "exactly by the H-shard ways; pick a crop height that is a multiple "
+            "(sharded dims must divide the mesh axis)")
     check_n_devices(p, world)
-    if p.get("eval_spatial", False) and world != 1:
-        raise ValueError(common.SPATIAL_EVAL_MULTI_HOST)
+    if world % S != 0:
+        raise ValueError(
+            f"n_model={S} does not divide the device count ({world}); pass n_data "
+            "explicitly to use a subset")
+    spatial_eval = p.get("eval_spatial", False) and world > 1
+    if S > 1 or spatial_eval:
+        what = f"--spatial_train {S}" if S > 1 else "--eval_spatial over several ranks"
+        if S > 1 and not spec.spatial:
+            raise NotImplementedError(
+                f"not ported yet: {what} for this algorithm (spatial partitioning "
+                f"of the ICT, VAT and aug_mt steps) is {spatial.A6C}")
+        if not registry.spatial_ported(p["arch"]):
+            raise NotImplementedError(
+                f"not ported yet: {what} with --arch {p['arch']} (spatial forms of "
+                f"its operations; only the DeepLab v2 family has them) is {spatial.A6C}")
+    return S
 
 
 def check_n_devices(p: dict, world: int) -> None:
@@ -127,8 +154,8 @@ class TrainEngine:
         self.device = resolve_device(self.device)
         # before anything touches the data: the refusals depend on the world
         mesh_mod.maybe_initialize_distributed(self.device)
-        check_ported(p)
-        self.mesh = mesh_mod.data_mesh()
+        self.spatial_n = check_ported(p, self.spec)
+        self.mesh = mesh_mod.data_mesh(self.spatial_n)
         self.is_lead = mesh_mod.is_lead()
         if self.device.type == "cuda":
             # the crop and eval shapes are fixed: cuDNN picks its algorithms
@@ -210,10 +237,12 @@ class TrainEngine:
             n_threads=p["num_workers"], resident=self.resident)
             if self.use_cons else None)
         self._seed = p.get("seed", 0)
-        # each rank its own host streams; the colour draws, made for the
-        # global batch, from the base seed on every rank
-        self._stream_seed = self._seed + mesh_mod.rank() * 7919
-        self.global_batch = p["batch_size"] * mesh_mod.world()
+        # each data index its own host streams (the model ranks of an image
+        # load the same samples); the colour draws, made for the global
+        # batch, from the base seed on every rank
+        data_index = 0 if self.mesh is None else self.mesh.data_index
+        self._stream_seed = self._seed + data_index * 7919
+        self.global_batch = mesh_mod.global_rows(p["batch_size"], self.mesh)
         # streams are (re)opened per epoch with epoch-folded seeds
         self.sup_stream = None
         self.streams = []
@@ -448,18 +477,18 @@ class TrainEngine:
             if out_dir:
                 os.makedirs(out_dir, exist_ok=True)
 
+            # --eval_spatial holds for the test eval and the predictions too
+            mesh, split_h = common.eval_layout(self.mesh, p.get("eval_spatial", False))
+
             def predict_over(indices, evaluator=None):
-                # every rank predicts its slice of each batch; the slices
-                # are gathered, so every rank scores the whole batch and
-                # rank 0 writes the predictions of a one-process run
-                eval_bs = common.eval_batch_size(p["batch_size"], self.mesh)
-                for batch in eval_batches(self.ds, indices, eval_bs, self.model.block_size):
-                    local = mesh_mod.eval_slice(
-                        {k: batch[k] for k in ("canvas", "labels", "sizes")}, self.mesh)
-                    pred, _ = predict(self.eval_net(), common.to_device(local, self.device),
-                                      self.mean, self.std)
-                    if self.mesh is not None:
-                        pred = mesh_mod.gather_rows(pred, self.mesh)
+                # every rank predicts its part of each batch (its data
+                # index's images, under --eval_spatial its rows of them);
+                # the parts are gathered, so every rank scores the whole
+                # batch and rank 0 writes the predictions of a one-process run
+                for batch in common.eval_batches_over(self.ds, indices, p["batch_size"],
+                                                      self.model.block_size, mesh, split_h):
+                    pred = common.predict_batch(self.eval_net(), batch, self.mean, self.std,
+                                                self.device, mesh, split_h)
                     pred, y = pred.cpu().numpy(), batch["labels"].astype(np.int64)
                     for k in range(batch["count"]):
                         i = int(batch["indices"][k])

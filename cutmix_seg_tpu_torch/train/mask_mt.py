@@ -6,8 +6,10 @@ headline experiment, on one GPU (port of cutmix_seg_tpu.train.mask_mt):
 The same flags and printed epoch line as the JAX trainer (and the
 reference, flags catalogued in CMDLINE_OPTIONS.md). The loop lives in
 ``train.engine``; the step is ``semisup.mask_mt``, whose CutMix blend is the
-CUDA kernel ``csrc/cutmix_blend.cu``. Options the port does not run yet are
-refused at setup (``engine.check_ported``).
+CUDA kernel ``csrc/cutmix_blend.cu``. Over several GPUs (``torchrun
+--nproc_per_node=N``) it runs data-parallel, and with ``--spatial_train S``
+on the DeepLab v2 family each image's rows split over S ranks. Options the
+port does not run yet are refused at setup (``engine.check_ported``).
 """
 
 from __future__ import annotations
@@ -61,6 +63,7 @@ def build_spec(p):
         pair_geom=False,
         fetch=fetch_two_streams if mask_mix else fetch_one_stream,
         compose=compose_mask_pair if mask_mix else compose_mask_single,
+        spatial=True,
     )
     return spec, cfg
 

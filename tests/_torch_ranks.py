@@ -1,9 +1,10 @@
-"""Rank processes for the port's data-parallel tests.
+"""Rank processes for the port's data-parallel and spatial tests.
 
 ``run_ranks(tmp_path, task)`` starts ``world`` processes of
 ``python -m tests._torch_ranks <dir> <rank> <world>``, joined into one gloo
 group through a ``file://`` store under ``tmp_path``; each runs the task's
-kind (``TASKS``) with its ``parallel.mesh.Mesh`` and saves its result. The
+kind (``TASKS``) with its ``parallel.mesh.Mesh`` (``task['n_model']`` ranks
+to an image, default 1) and saves its result. The
 spawn has a deadline: a rank that fails, or one that outlives it (a stalled
 collective), fails the call and every rank is killed, so the test fails
 instead of hanging the suite. The ranks import the port only (no JAX), so
@@ -282,6 +283,7 @@ def trainer_env(task) -> None:
     from cutmix_seg_tpu_torch.models import registry
 
     sources.PascalVOCDataSource.canvas_hw = (48, 48)
+    sources.CityscapesDataSource.canvas_hw = task.get("city_canvas", (32, 64))
     registry.register(task["arch"])(tiny_deeplab)
 
 
@@ -310,13 +312,14 @@ class WriteCounter:
         setattr(owner, name, counted)
 
 
-def eval_world(net, ds, mesh, num_classes, fill_holes):
-    """The eval pass over 11 images in batches of 5 (6 at world 2: rank 1
-    takes the padded end of the last batch)."""
+def eval_world(net, ds, mesh, num_classes, fill_holes, spatial=False, n=11):
+    """The eval pass over n images in batches of 5 (6 at world 2: rank 1
+    takes the padded end of the last batch; with ``spatial`` each rank
+    takes its rows of all 5)."""
     from cutmix_seg_tpu_torch.train import common
 
-    return common.evaluate(net, ds, np.arange(11), 5, num_classes, np.zeros(3), np.ones(3),
-                           (1, 1), torch.device("cpu"), fill_holes, mesh)
+    return common.evaluate(net, ds, np.arange(n), 5, num_classes, np.zeros(3), np.ones(3),
+                           (1, 1), torch.device("cpu"), fill_holes, mesh, spatial)
 
 
 def holes_net():
@@ -341,11 +344,16 @@ def task_trainer(task, mesh):
                          dict(task["params"], **overrides), results_root=task["root"])
         out["runs"][desc] = {"digest": digest(checkpoint.state_to_host(eng.state)),
                              "step": eng.state.step, "start_epoch": eng.start_epoch}
+        if desc in task.get("keep_student", ()) and mesh.rank == 0:
+            out["runs"][desc]["student"] = eng.state.student.state_dict()
     out["writes"] = dict(writes.counts)
     if mesh.rank == 0:  # the last run's eval net, for the parent's world-1 eval
         out["teacher"] = eng.eval_net().state_dict()
-    out["iou"] = eval_world(eng.eval_net(), eng.ds, mesh, eng.n_classes, False)
-    out["iou_holes"] = eval_world(holes_net(), eng.ds, mesh, 2, True)
+    for sp in ((False, True) if task.get("eval_spatial") else (False,)):
+        tag = "_spatial" if sp else ""
+        n = task.get("eval_n", 11)
+        out["iou" + tag] = eval_world(eng.eval_net(), eng.ds, mesh, eng.n_classes, False, sp, n)
+        out["iou_holes" + tag] = eval_world(holes_net(), eng.ds, mesh, 2, True, sp, n)
     return out
 
 
@@ -378,6 +386,157 @@ def task_multiseed(task, mesh):
                         task["params"], results_root=task["root"])
     return {"digests": {k: digest(checkpoint.state_to_host(st)) for k, st in states.items()},
             "writes": dict(writes.counts)}
+
+
+# ---- spatial partitioning (parallel.spatial) ----
+
+
+class OpNet(torch.nn.Module):
+    """One cross-row operation as a network (NHWC in and out) of a given
+    global input height, so ``set_spatial`` and its trace apply to it."""
+
+    supports_spatial = True
+
+    def __init__(self, op, h, **kw):
+        super().__init__()
+        self.spatial, self.op, self.h, self.kw = None, op, h, kw
+        if op == "conv":
+            gen = torch.Generator().manual_seed(0)
+            self.conv = tcommon.Conv2d(kw["cin"], kw["cout"], kw["k"], stride=kw["s"],
+                                       padding=kw["p"], dilation=kw["d"], bias=True)
+            with torch.no_grad():
+                self.conv.weight.normal_(generator=gen)
+                self.conv.bias.normal_(generator=gen)
+
+    def forward(self, x):
+        if self.spatial is not None:
+            self.spatial.begin(self, x, self.h)
+        if self.op == "conv":
+            return self.conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        if self.op == "pool":
+            return tcommon.max_pool_ceil(x, 3, 2, 1, spatial=self.spatial)
+        return tcommon.upsample_bilinear_align_corners(x, self.kw["out"], spatial=self.spatial)
+
+
+def _conv(cin, cout, k, s, p, d):
+    return dict(cin=cin, cout=cout, k=k, s=s, p=p, d=d)
+
+
+SPATIAL_OPS = {  # name: (op, global input height, options); inputs (2, h, 11, C)
+    "stem_7x7_s2": ("conv", 36, _conv(3, 4, 7, 2, 3, 1)),
+    "stem_7x7_s2_256": ("conv", 256, _conv(3, 2, 7, 2, 3, 1)),
+    "proj_1x1_s2_65": ("conv", 65, _conv(3, 4, 1, 2, 0, 1)),
+    "proj_1x1_s2_10": ("conv", 10, _conv(3, 4, 1, 2, 0, 1)),
+    "conv_1x1": ("conv", 33, _conv(3, 4, 1, 1, 0, 1)),
+    "conv_3x3_d1": ("conv", 33, _conv(3, 4, 3, 1, 1, 1)),
+    "conv_3x3_d2": ("conv", 33, _conv(3, 4, 3, 1, 2, 2)),
+    "conv_3x3_d4": ("conv", 17, _conv(3, 4, 3, 1, 4, 4)),
+    "aspp_d6_halo_gt_shard": ("conv", 5, _conv(3, 4, 3, 1, 6, 6)),
+    "aspp_d12": ("conv", 33, _conv(3, 4, 3, 1, 12, 12)),
+    "aspp_d18": ("conv", 33, _conv(3, 4, 3, 1, 18, 18)),
+    "aspp_d24_33": ("conv", 33, _conv(3, 4, 3, 1, 24, 24)),
+    "pool_ceil_18": ("pool", 18, {}),
+    "pool_ceil_129": ("pool", 129, {}),
+    "up_5_to_36": ("up", 5, dict(out=(36, 11))),
+    "up_33_to_256": ("up", 33, dict(out=(256, 7))),
+    "up_9_to_9": ("up", 9, dict(out=(9, 14))),
+}
+
+
+def spatial_op_run(name: str, mesh) -> dict:
+    """One op of SPATIAL_OPS on its seeded global input: alone (mesh None)
+    on the whole input, else on this rank's rows of it. Returns the output
+    rows, the input gradient of sum(out * g) (g seeded, of the output's
+    shape) and the conv's weight and bias gradients."""
+    op, h, kw = SPATIAL_OPS[name]
+    rng = np.random.RandomState(sorted(SPATIAL_OPS).index(name))
+    x = torch.from_numpy(rng.randn(2, h, 11, kw.get("cin", 3)).astype(np.float32))
+    net = OpNet(op, h, **kw)
+    with torch.no_grad():
+        h_out = net(x).shape[1]
+    g = torch.from_numpy(rng.randn(2, h_out, *net(x).shape[2:]).astype(np.float32))
+    if mesh is not None:
+        from cutmix_seg_tpu_torch.parallel import spatial
+
+        spatial.set_spatial(net, mesh)
+        x, g = spatial.slice_h(x, mesh), spatial.slice_h(g, mesh)
+    x = x.clone().requires_grad_(True)
+    out = net(x)
+    (out * g).sum().backward()
+    res = {"out": out.detach(), "x_grad": x.grad}
+    if op == "conv":
+        res.update(w_grad=net.conv.weight.grad, b_grad=net.conv.bias.grad)
+    return res
+
+
+class ArraySource:
+    """An eval source held in memory: ``n`` images of varying sizes up to
+    ``canvas_hw``, labels with 255 borders (test_torch_eval.MemorySource)."""
+
+    def __init__(self, n, seed, canvas_hw, num_classes):
+        rng = np.random.RandomState(seed)
+        self.canvas_hw, self.num_classes = canvas_hw, num_classes
+        self.images, self.labels = [], []
+        for _ in range(n):
+            h = rng.randint(canvas_hw[0] // 2, canvas_hw[0] + 1)
+            w = rng.randint(canvas_hw[1] // 2, canvas_hw[1] + 1)
+            self.images.append(rng.randint(0, 256, size=(h, w, 3)).astype(np.uint8))
+            lab = rng.randint(0, num_classes, size=(h, w)).astype(np.int32)
+            lab[0] = 255
+            self.labels.append(lab)
+
+    def get_image(self, i):
+        return self.images[i]
+
+    def get_labels(self, i):
+        return self.labels[i]
+
+
+def spatial_model_run(task, mesh) -> dict:
+    """The tiny DeepLab v2 of ``task['state_dict']`` in eval mode: the
+    logits of ``task['x']``, each raw batch's confusion matrix (H padded to
+    the split) and the eval passes over ``task['source']`` (plain and with
+    hole filling on a 2-class net) alone (mesh None) or split over
+    ``mesh``'s ranks (``--eval_spatial``)."""
+    from cutmix_seg_tpu_torch.ops.iou import confusion_matrix
+    from cutmix_seg_tpu_torch.parallel import spatial
+    from cutmix_seg_tpu_torch.train import common
+
+    net = DeepLab2(C, layers=(1, 1, 1, 1))
+    net.load_state_dict(task["state_dict"])
+    net.eval()
+    mean, std = task["mean"], task["std"]
+    dev = torch.device("cpu")
+    sp_mesh, split = common.eval_layout(mesh, True)
+    out = {"cms": []}
+    x = torch.from_numpy(task["x"])
+    with torch.no_grad():
+        if split:
+            spatial.set_spatial(net, sp_mesh)
+            x = spatial.slice_h(x, sp_mesh)
+        out["logits"] = net(x)
+    for batch in task["batches"]:
+        if split:
+            batch = spatial.pad_batch_h(batch, spatial.spatial_h_axis_size(sp_mesh))
+        pred, y = common.predict_rows(net, batch, mean, std, dev, sp_mesh, split)
+        cm = confusion_matrix(pred, y, C)
+        if mesh is not None:
+            dist.all_reduce(cm)
+        out["cms"].append(cm)
+    src = task["source"]
+    idx = np.arange(len(src.images))
+    out["iou"] = common.evaluate(net, src, idx, 3, C, mean, std, (1, 1), dev, False, mesh, True)
+    out["iou_holes"] = common.evaluate(holes_net(), src, idx, 3, 2, mean, std, (1, 1), dev,
+                                       True, mesh, True)
+    return out
+
+
+def task_spatial_ops(task, mesh):
+    return {name: spatial_op_run(name, mesh) for name in SPATIAL_OPS}
+
+
+def task_spatial_model(task, mesh):
+    return spatial_model_run(task, mesh)
 
 
 # ---- the rank processes' tasks ----
@@ -421,7 +580,8 @@ def task_stall(task, mesh):
 
 
 TASKS = {"steps": task_steps, "stall": task_stall, "collectives": task_collectives, "bn_grad": task_bn_grad,
-         "trainer": task_trainer, "streams": task_streams, "multiseed": task_multiseed}
+         "trainer": task_trainer, "streams": task_streams, "multiseed": task_multiseed,
+         "spatial_ops": task_spatial_ops, "spatial_model": task_spatial_model}
 
 
 def main(argv) -> None:
@@ -432,7 +592,7 @@ def main(argv) -> None:
                             world_size=world,
                             timeout=datetime.timedelta(seconds=task.get("timeout", 120)))
     try:
-        out = TASKS[task["kind"]](task, Mesh(world, rank))
+        out = TASKS[task["kind"]](task, Mesh(world, rank, task.get("n_model", 1)))
     finally:
         dist.destroy_process_group()
     torch.save(out, d / f"out_{rank}.pt")

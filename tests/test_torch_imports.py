@@ -59,7 +59,7 @@ def test_every_module_imports_on_cpu():
                 "tools.synthetic_benchmark", "models.denseunet", "models.resunet",
                 "models.deeplab3", "models.pspnet", "data.resident", "tools.convert_cityscapes",
                 "tools.convert_isic", "tools.download_pascal_aug_names", "parallel.mesh",
-                "parallel.multi_seed", "train.multi_seed_mask_mt"):
+                "parallel.multi_seed", "train.multi_seed_mask_mt", "parallel.spatial"):
         assert f"cutmix_seg_tpu_torch.{mod}" in names, mod
     for name in names:
         importlib.import_module(name)

@@ -140,9 +140,17 @@ def test_checkpoint_restores_the_saved_state(voc, tmp_path):
 REFUSED = {  # case: (overrides, world size, the exception, its message)
     # --n_devices must be the world size (one GPU per process)
     "n_devices": (dict(n_devices=2), 1, ValueError, "--n_devices 2 does not match"),
-    # spatial eval runs with one process only, as JAX's multi-host trainer
-    "eval_spatial": (dict(eval_spatial=True), 2, ValueError, "single-host only"),
-    "spatial_train": (dict(spatial_train=2), 1, NotImplementedError, "ROADMAP A6b"),
+    # spatial eval over several ranks runs on DeepLab v2 only
+    "eval_spatial": (dict(eval_spatial=True, arch="resnet101_deeplabv3_imagenet"), 2,
+                     NotImplementedError, "ROADMAP A6c"),
+    # the world must split into S-rank groups (JAX make_mesh's message)
+    "spatial_train": (dict(spatial_train=2), 1, ValueError,
+                      "n_model=2 does not divide the device count"),
+    "spatial_train_arch": (dict(spatial_train=2, arch="resnet101_pspnet_imagenet"), 2,
+                           NotImplementedError, "ROADMAP A6c"),
+    # the crop height must split S ways (the JAX trainer's message)
+    "spatial_train_crop": (dict(spatial_train=2, crop_size="33,32"), 2, ValueError,
+                           "requires the crop height"),
     # every JAX --arch is in the port: a name in neither registry
     "arch_not_ported": (dict(arch="resnet18_fcn"), 1, KeyError, "unknown architecture"),
 }

@@ -176,6 +176,16 @@ def test_left_out_options_raise_before_data_loads(name, case, tmp_path, monkeypa
 
 
 @pytest.mark.parametrize("name", sorted(TRAINERS))
+def test_spatial_train_refused_for_the_algorithm(name, tmp_path, monkeypatch):
+    """--spatial_train runs for mask_mt only: the other steps have no
+    spatial form yet (ROADMAP A6c), even on DeepLab v2."""
+    monkeypatch.setattr(engine.datasets, "load_dataset", None)
+    monkeypatch.setattr(mesh, "world", lambda: 2)
+    with pytest.raises(NotImplementedError, match="for this algorithm .* ROADMAP A6c"):
+        _submit(name, tmp_path / "results", "spatial", spatial_train=2)
+
+
+@pytest.mark.parametrize("name", sorted(TRAINERS))
 def test_trainer_runs_on_cuda_unless_asked(name, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(engine.datasets, "load_dataset", None)
