@@ -109,7 +109,21 @@ Phases, in order; any failure exits non-zero before the result lines:
      over the ranks, against the world-1 eval: the differing pixels (each
      must be a near tie of world 1's logits), the confusion matrices and
      the eval ms;
-  9. the kernel summary line and, last, the device line.
+  9. serving, the model tools and toy2d (no kernel launch on these paths):
+     9a tools/export_model on DeepLab v2 R101 (21 classes, bf16, 321^2,
+     seeded random weights written as a model.pt), the artifact loaded and
+     called at batches 1, 4, 8 and 16 in a fresh process that imports torch
+     alone, its labels against the package forward (a flip must be a near
+     tie), serve_bench's timings beside the eager serving module's, an f32
+     logits artifact at batch 2 (rtol 1e-4, atol 1e-5, TF32 off) and
+     DenseUNet-161 at 224^2; 9b tools/evaluate_model on phase 6's model.pt
+     and checkpoints (teacher: that run's last eval line exactly; student),
+     and the HTTP host on a free port with 9a's artifact (/healthz, one
+     /predict equal to 9a's labels); 9c the toy2d step of each model and
+     norm at width 512, 3 steps on the CPU and the card in lockstep with
+     injected draws, phase 3's bounds, then run_toy2d_experiments.sh's three
+     lines through the port's CLI at 2 epochs: error, s/epoch, renders;
+  10. the kernel summary line and, last, the device line.
 
 Imports nothing of JAX: it runs where only PyTorch and the CUDA toolkit are.
 ``python3 chip_smoke.py --rank-of <kind> <dir> ...`` is a rank process of
@@ -118,7 +132,10 @@ phase 7 or 8, started by the script itself.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
+import io
 import json
 import math
 import os
@@ -154,6 +171,7 @@ from cutmix_seg_tpu_torch.models.common import (
     Dropout,
     SegModel,
     eval_mode,
+    init_weights,
     label_params_by_path,
 )
 from cutmix_seg_tpu_torch.models.deeplab2 import DeepLab2, _param_label, resnet101_deeplab_imagenet
@@ -1046,7 +1064,7 @@ def phase_trainer(voc_root: str, step_ms: float, device=None) -> dict:
         "ms_per_iter": ms_iter, "img_per_s": TRAIN_ITERS * BATCH / ep2["train_time"],
         "eval_ms_per_batch": ep2["eval_time"] / n_eval_batches * 1e3,
         "epoch_s": [r["epoch_time"] for r in records], "ckpt_host_copy_s": t1 - t0,
-        "ckpt_save_s": t2 - t1, "launches": launches1, "losses": first,
+        "ckpt_save_s": t2 - t1, "launches": launches1, "losses": first, "run_dir": run_dir,
     }
     note(f"[trainer] Pascal recipe, {engine.p['arch']} {engine.p['compute_dtype']}, bs {BATCH}, "
          f"{CROP}^2 crops from {engine.ds.canvas_hw} canvases, "
@@ -1980,6 +1998,449 @@ def phase_spatial_trainer(tmp: str, voc_root: str) -> dict:
             "logit_delta": delta, "ranks_s": t_ranks}
 
 
+# phase 9: serving, the model tools and toy2d
+SERVE_ARCH, SERVE_HW, SERVE_BATCHES = "resnet101_deeplab_imagenet", (321, 321), (1, 4, 8, 16)
+SERVE_ITERS = 20
+DENSE_SERVE = ("densenet161unet_imagenet", 2, (224, 224))  # the ISIC arch
+# a bf16 label may flip between two runs of one graph only where the top two
+# logits lie within a few bf16 steps (2^-8 of the pixel's largest |logit|)
+SERVE_TIE_REL = 2.0 ** -5
+# 9a's torch-only load: the artifact and the images in, the labels out
+TORCH_ONLY_LOAD = r"""
+import sys, torch
+art, xs_path, out_path = sys.argv[1:]
+call = torch.export.load(art).module()
+labels = [call(x.to("cuda")).cpu() for x in torch.load(xs_path)]
+bad = sorted(m for m in sys.modules if m.startswith("cutmix_seg_tpu"))
+if bad:
+    raise SystemExit(f"the loader imported {bad}")
+torch.save(labels, out_path)
+"""
+
+
+def _serve_inputs(batches, hw, seed: int):
+    """uint8 NHWC images per batch size, made on the host from a seed."""
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randint(0, 256, (b,) + tuple(hw) + (3,), dtype=torch.uint8, generator=gen)
+            for b in batches]
+
+
+def _flips_are_ties(labels: torch.Tensor, logits: torch.Tensor, what: str) -> dict:
+    """Labels against the package forward's float logits: every differing
+    pixel must have its label's logit within SERVE_TIE_REL of the top one."""
+    logits = logits.float().cpu()
+    want = logits.argmax(dim=-1)
+    differ = labels.long().cpu() != want
+    top = logits.max(dim=-1).values
+    got = logits.gather(-1, labels.long().cpu()[..., None])[..., 0]
+    margin = (top - got)[differ]
+    bound = SERVE_TIE_REL * logits.abs().amax(dim=-1)[differ]
+    if bool((margin > bound).any()):
+        raise RuntimeError(f"{what}: {int((margin > bound).sum())} flipped labels are not "
+                           "near ties of the package forward's logits")
+    return {"flips": int(differ.sum()), "pixels": labels.numel(),
+            "max_margin": float(margin.max()) if margin.numel() else 0.0}
+
+
+def _stop(proc: subprocess.Popen) -> None:
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def _http_predict(server: subprocess.Popen, port: int, image: np.ndarray) -> tuple:
+    """The HTTP host's /healthz metadata and its /predict labels of one
+    image, once the host answers (it loads the artifact and the card)."""
+    import urllib.request
+
+    from PIL import Image
+
+    deadline = time.monotonic() + 300
+    while True:
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=10) as r:
+                meta = json.loads(r.read())
+            break
+        except OSError:
+            if server.poll() is not None or time.monotonic() > deadline:
+                raise RuntimeError("9b: the HTTP host did not come up")
+            time.sleep(1.0)
+    buf = io.BytesIO()
+    Image.fromarray(image).save(buf, format="PNG")
+    t0 = time.perf_counter()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/predict", data=buf.getvalue())
+    with urllib.request.urlopen(req, timeout=120) as r:
+        pred = np.asarray(Image.open(io.BytesIO(r.read())))
+    return meta, pred, (time.perf_counter() - t0) * 1e3
+
+
+def phase_serving(tmp: str) -> dict:
+    """9a: tools/export_model on the card (R101 bf16 21 classes 321^2 from a
+    model.pt of seeded random weights), loaded in a fresh torch-only process
+    and called at batches 1-16 against the package forward; the f32 logits
+    artifact at batch 2; DenseUNet-161 at 224^2; serve_bench's timings. 9b's
+    HTTP host serves the artifact from a process of its own. The two
+    processes start as soon as the artifact exists and load while this one
+    exports the others; the timings run after both are done with the card."""
+    from cutmix_seg_tpu_torch.serve.export import (
+        export_serving_artifact,
+        load_serving_artifact,
+        make_serving_fn,
+    )
+    from cutmix_seg_tpu_torch.tools import export_model, serve_bench
+
+    out = os.path.join(tmp, "serve")
+    os.makedirs(out, exist_ok=True)
+    model = resnet101_deeplab_imagenet(NUM_CLASSES, dtype=torch.bfloat16, pretrained=False)
+    init_weights(model.module, torch.Generator().manual_seed(0))
+    params = os.path.join(out, "model.pt")
+    checkpoint.export_params(params, model.module)
+    art = os.path.join(out, "model_321.pt2")
+    build.launch_counts.clear()
+    t0 = time.perf_counter()
+    export_model.main.main(["--arch", SERVE_ARCH, "--num_classes", str(NUM_CLASSES),
+                            "--params", params, "--hw", ",".join(map(str, SERVE_HW)),
+                            "--out", art, "--device", "cuda", "--dtype", "bfloat16"],
+                           standalone_mode=False)
+    export_s = time.perf_counter() - t0
+    mb = os.path.getsize(art) / 1e6
+    with open(art + ".json") as f:
+        meta = json.load(f)
+    if meta["platforms"] != ["cuda"] or meta["input_hw"] != list(SERVE_HW):
+        raise RuntimeError(f"9a: unexpected metadata {meta}")
+
+    # the torch-only load, in a fresh process from outside the repository,
+    # and the HTTP host
+    xs = _serve_inputs(SERVE_BATCHES, SERVE_HW, seed=1)
+    torch.save(xs, os.path.join(out, "xs.pt"))
+    with open(os.path.join(out, "load.py"), "w") as f:
+        f.write(TORCH_ONLY_LOAD)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    t_load = time.perf_counter()
+    loader = subprocess.Popen([sys.executable, "load.py", art, "xs.pt", "labels.pt"], cwd=out,
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    port = _free_port()
+    server = subprocess.Popen([sys.executable, "-m", "cutmix_seg_tpu_torch.serve.http",
+                               "--artifact", art, "--port", str(port)],
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        # f32 logits at batch 2, TF32 off (phase 3 turned it off)
+        f32 = export_model.build_net(SERVE_ARCH, NUM_CLASSES, params, "float32")
+        art32 = os.path.join(out, "logits_f32.pt2")
+        export_serving_artifact(f32, SERVE_HW, art32, output="logits", device="cuda")
+        call32, _ = load_serving_artifact(art32)
+        x2 = _serve_inputs([2], SERVE_HW, seed=2)[0].cuda()
+        with torch.no_grad():
+            got, want = call32(x2), make_serving_fn(f32, "logits")(x2)
+        f32_err = (got - want).abs().max().item()
+        if got.dtype != torch.float32 or not torch.allclose(got, want, rtol=1e-4, atol=1e-5):
+            raise RuntimeError(f"9a: f32 logits differ by {f32_err:.3g}")
+        del call32, f32, got, want
+
+        # the ISIC arch at its crop size
+        dense_arch, dense_classes, dense_hw = DENSE_SERVE
+        art_d = os.path.join(out, "densenet_224.pt2")
+        t0 = time.perf_counter()
+        export_model.main.main(["--arch", dense_arch, "--num_classes", str(dense_classes),
+                                "--hw", ",".join(map(str, dense_hw)), "--out", art_d,
+                                "--device", "cuda", "--dtype", "bfloat16"], standalone_mode=False)
+        dense_s = time.perf_counter() - t0
+        dense = export_model.build_net(dense_arch, dense_classes, None, "bfloat16")
+        dense.module.to("cuda")
+        call_d, _ = load_serving_artifact(art_d)
+        xd = _serve_inputs([2], dense_hw, seed=3)[0].cuda()
+        with torch.no_grad():
+            dense_ties = _flips_are_ties(call_d(xd), make_serving_fn(dense, "logits")(xd),
+                                         "9a DenseUNet")
+        dense_mb = os.path.getsize(art_d) / 1e6
+        del call_d, dense
+
+        _, err = loader.communicate(timeout=600)
+        load_s = time.perf_counter() - t_load
+        if loader.returncode:
+            raise RuntimeError(f"9a: the torch-only load failed:\n{err[-3000:]}")
+        labels = torch.load(os.path.join(out, "labels.pt"))
+        host_meta, pred, predict_ms = _http_predict(server, port, xs[0][0].numpy())
+    finally:
+        _stop(loader)
+        _stop(server)
+    if host_meta.get("input_hw") != list(SERVE_HW):
+        raise RuntimeError(f"9b: /healthz gave {host_meta}")
+    if not np.array_equal(pred, labels[0][0].numpy().astype(np.uint8)):
+        raise RuntimeError("9b: /predict's labels differ from 9a's")
+
+    # the package forward of the same weights, on the card, with cuDNN's
+    # default choice as in the fresh process
+    torch.backends.cudnn.benchmark = False
+    model.module.to("cuda")
+    serve = make_serving_fn(model, "logits")
+    ties = {}
+    with torch.no_grad():
+        for b, x, lab in zip(SERVE_BATCHES, xs, labels):
+            if lab.shape != (b,) + SERVE_HW or lab.dtype != torch.int32:
+                raise RuntimeError(f"9a: batch {b}: labels {tuple(lab.shape)} {lab.dtype}")
+            ties[b] = _flips_are_ties(lab, serve(x.cuda()), f"9a batch {b}")
+    call, _ = load_serving_artifact(art)
+    timing = serve_bench.measure(call, SERVE_BATCHES, SERVE_HW, NUM_CLASSES,
+                                 torch.device("cuda"), SERVE_ITERS)
+    # the yardstick: the package's eager serving module on the same weights
+    eager = serve_bench.measure(make_serving_fn(model), SERVE_BATCHES, SERVE_HW, NUM_CLASSES,
+                                torch.device("cuda"), SERVE_ITERS)
+    torch.backends.cudnn.benchmark = True
+    del call, serve, model
+    launches = build.launch_counts.get(KERNEL, 0)
+    if launches:
+        raise RuntimeError(f"9a: serving launched {KERNEL} {launches} times")
+
+    note(f"[serve] 9a: tools/export_model {SERVE_ARCH} bf16 {NUM_CLASSES} classes at "
+         f"{SERVE_HW}: {export_s:.1f} s, {mb:.1f} MB; loaded and called in a torch-only "
+         f"process ({load_s:.1f} s from its start); labels against the package forward per "
+         "batch: " + ", ".join(f"b{b} {t['flips']} of {t['pixels']} flipped (max margin "
+                               f"{t['max_margin']:.3g})" for b, t in ties.items()))
+    note("[serve] 9a: serve_bench timing (CUDA events, median of "
+         f"{SERVE_ITERS} after {serve_bench.WARMUP} warm-up): " + ", ".join(
+             f"b{b} {r['ms_per_call']:.2f} ms/call, {r['img_per_s']:.1f} img/s, "
+             f"{r['ms_per_img']:.2f} ms/img (eager module {eager[str(b)]['ms_per_call']:.2f} "
+             "ms/call)" for b, r in timing.items()))
+    note(f"[serve] 9a: f32 logits artifact at batch 2 within {f32_err:.3g} of the package "
+         f"forward (rtol 1e-4, atol 1e-5, TF32 off); {dense_arch} at {dense_hw}: export "
+         f"{dense_s:.1f} s, {dense_mb:.1f} MB, {dense_ties['flips']} of "
+         f"{dense_ties['pixels']} labels flipped; {launches} {KERNEL} launches")
+    note(f"[tools] 9b: HTTP host (a process of its own, port {port}): /healthz and /predict "
+         f"(first request {predict_ms:.0f} ms) equal to 9a's batch-1 labels")
+    return {"export_s": export_s, "mb": mb, "timing": timing, "eager": eager, "ties": ties,
+            "f32_err": f32_err, "dense_export_s": dense_s, "dense_mb": dense_mb,
+            "launches": launches, "load_s": load_s, "predict_ms": predict_ms}
+
+
+def _last_eval_lines(log: str) -> tuple:
+    """The last epoch line's 'VAL mIoU=...' and the per-class line after it."""
+    lines = log.splitlines()
+    i = max(k for k, ln in enumerate(lines) if ln.startswith("Epoch ") and "VAL mIoU=" in ln)
+    return "VAL mIoU=" + lines[i].split("VAL mIoU=")[1], lines[i + 1]
+
+
+def _evaluate_tool(args) -> tuple:
+    """tools/evaluate_model in this process: (IoU, its last two lines)."""
+    from cutmix_seg_tpu_torch.tools import evaluate_model
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        iou = evaluate_model.main.main(args, standalone_mode=False)
+    return iou, tuple(buf.getvalue().splitlines()[-2:])
+
+
+def phase_tools(trainer: dict) -> dict:
+    """9b: tools/evaluate_model on phase 6's model.pt and checkpoints
+    against that run's last eval (its eval net, the teacher), and on the
+    checkpoint's student."""
+    run_dir = trainer["run_dir"]
+    with open(os.path.join(run_dir, "log_run.txt")) as f:
+        want = _last_eval_lines(f.read())
+    common_args = ["--dataset", "pascal", "--arch", SERVE_ARCH, "--batch_size", str(BATCH),
+                   "--compute_dtype", "bfloat16", "--device", "cuda"]
+    build.launch_counts.clear()
+    t0 = time.perf_counter()
+    got = {"model.pt": _evaluate_tool(common_args + ["--model_path",
+                                                     os.path.join(run_dir, "model.pt")])}
+    eval_s = time.perf_counter() - t0
+    ckpts = os.path.join(run_dir, "checkpoints")
+    for net in ("teacher", "student"):
+        got[f"checkpoint {net}"] = _evaluate_tool(common_args + ["--checkpoint", ckpts,
+                                                                 "--net", net])
+    for name in ("model.pt", "checkpoint teacher"):
+        if got[name][1] != want:
+            raise RuntimeError(f"9b: evaluate_model on {name} printed {got[name][1]}, the "
+                               f"trainer's last eval {want}")
+    student_iou = got["checkpoint student"][0]
+    if not np.isfinite(np.nanmean(student_iou)):
+        raise RuntimeError("9b: the student's IoU is not finite")
+    launches = build.launch_counts.get(KERNEL, 0)
+    note(f"[tools] 9b: evaluate_model on phase 6's model.pt and checkpoints/ (--net teacher) "
+         f"printed the trainer's last eval {want[0]} ({eval_s:.1f} s for the model.pt pass, "
+         f"{VOC_VAL} val images); --net student: mIoU {np.nanmean(student_iou):.3%}; "
+         f"{launches} {KERNEL} launches")
+    return {"launches": launches, "eval_s": eval_s}
+
+
+TOY_STEPS, TOY_LR, TOY_SUP, TOY_UNSUP = 3, 1e-3, 35, 512
+# run_toy2d_experiments.sh's three lines, --num_epochs 2 for 100 / 100 / 25
+TOY_RECIPES = {
+    "continuous_semisup": [
+        "--dataset=img:data/toy2d/curve_mask_v3.png", "--sup_path=data/toy2d/curve_mask_v3_35.pkl",
+        "--region_erode_radius=0", "--norm_layer=none", "--cons_no_dropout",
+        "--cons_loss_fn=logits_var", "--cons_weight=1.0", "--perturb_noise_std=30.0",
+        "--dist_contour_range=4.0", "--render_pred=class", "--save_output"],
+    "cluster_semisup": [
+        "--dataset=img:data/toy2d/curve_mask_v3.png", "--sup_path=data/toy2d/curve_mask_v3_35.pkl",
+        "--region_erode_radius=35", "--save_output"],
+    "cluster_sup": [
+        "--dataset=img:data/toy2d/curve_mask_v3.png", "--sup_path=data/toy2d/curve_mask_v3_35.pkl",
+        "--region_erode_radius=35", "--cons_weight=0.0", "--save_output"],
+}
+TOY_EPOCHS = 2
+
+
+def _toy_state(device, sd, model: str, norm: str):
+    """A toy2d student (weights ``sd``), its EMA teacher or None, and the
+    Toy2DAlgo with its Adam, on ``device``."""
+    from cutmix_seg_tpu_torch.core.train_state import Optimizer
+    from cutmix_seg_tpu_torch.toy2d.model import ToyMLP
+    from cutmix_seg_tpu_torch.toy2d.train import Toy2DAlgo
+
+    student = ToyMLP(norm_layer=norm)
+    student.load_state_dict(sd)
+    student.to(device)
+    teacher = (copy.deepcopy(student).requires_grad_(False) if model == "mean_teacher"
+               else None)
+    names = dict(student.named_parameters())
+    opt = Optimizer(OptimizerConfig(opt_type="adam", learning_rate=TOY_LR), names,
+                    {n: "new" for n in names})
+    algo = Toy2DAlgo(opt, model=model, cons_weight=10.0, cons_loss_fn="var",
+                     cons_no_dropout=False, conf_thresh=0.0, conf_avg=False,
+                     teacher_alpha=0.99, pstd_real=np.float32([0.05, 0.05]))
+    return student, teacher, algo
+
+
+def _toy_tensors(student, teacher, algo) -> dict:
+    """Host copies of the student's and teacher's tensors and the Adam moments."""
+    out = {f"{part}.{k}": v.to("cpu", copy=True)
+           for part, net in (("student", student), ("teacher", teacher))
+           if net is not None for k, v in net.state_dict().items()}
+    for gi, g in enumerate(algo.opt.groups):
+        for name, ts in g.state.items():
+            out.update({f"adam.{gi}.{name}.{i}": t.to("cpu", copy=True)
+                        for i, t in enumerate(ts)})
+    return out
+
+
+@torch.no_grad()
+def _toy_sync(dst: tuple, src: tuple) -> None:
+    """Copy one toy2d state (student, teacher, algo) into another."""
+    for a, b in zip(dst[:2], src[:2]):
+        if a is not None:
+            a.load_state_dict(b.state_dict())
+    for ga, gb in zip(dst[2].opt.groups, src[2].opt.groups):
+        for name in ga.state:
+            for ta, tb in zip(ga.state[name], gb.state[name]):
+                ta.copy_(tb)
+    dst[2].opt.count = src[2].opt.count
+
+
+def _toy_lockstep(sd, model: str, norm: str, draws) -> list:
+    """TOY_STEPS toy2d steps on the CPU and the card in lockstep, each step
+    of both from the CPU's state after the previous one (Adam turns rounding
+    noise in a near-zero gradient into a step of up to lr, which a free run
+    would compound): per step, the metrics and the tensors after it."""
+    states = {dev: _toy_state(dev, sd, model, norm) for dev in ("cpu", "cuda")}
+    out = []
+    for d in draws:
+        step = {}
+        for dev, (student, teacher, algo) in states.items():
+            t = {k: [torch.from_numpy(a).to(dev) for a in v] if isinstance(v, list)
+                 else torch.from_numpy(v).to(dev) for k, v in d.items()}
+            m = algo.train_step(student, teacher, t["sup_x"], t["sup_y"], t["unsup_x"],
+                                noise=t["noise"], drop_masks=t["masks"])
+            step[dev] = ({k: v.item() for k, v in m.items()},
+                         _toy_tensors(student, teacher, algo))
+        out.append(step)
+        _toy_sync(states["cuda"], states["cpu"])
+    return out
+
+
+def phase_toy2d(tmp: str) -> dict:
+    """9c: each model x norm of the toy2d step at full width, GPU against CPU
+    (f32, TF32 off, injected draws, phase 3's bounds); then the three recipe
+    lines of run_toy2d_experiments.sh through the port's CLI at 2 epochs."""
+    from cutmix_seg_tpu_torch.toy2d import train as toy_train
+    from cutmix_seg_tpu_torch.toy2d.model import NORMS, ToyMLP
+
+    build.launch_counts.clear()
+    t0 = time.perf_counter()
+    for norm in NORMS:
+        net = ToyMLP(norm_layer=norm)
+        net.reset_parameters(torch.Generator().manual_seed(4))
+        sd = net.state_dict()
+        for model in ("mean_teacher", "pi", "pi_onebatch"):
+            rng = np.random.RandomState(5)
+            sizes = [TOY_SUP] + ([2 * TOY_UNSUP] if model == "pi_onebatch" else [TOY_UNSUP] * 2)
+            draws = []
+            for _ in range(TOY_STEPS):
+                unsup = rng.uniform(-1, 1, (TOY_UNSUP, 2)).astype(np.float32)
+                draws.append({
+                    "sup_x": rng.uniform(-1, 1, (TOY_SUP, 2)).astype(np.float32),
+                    "sup_y": rng.randint(0, 2, TOY_SUP).astype(np.int64),
+                    "unsup_x": unsup,
+                    "noise": (rng.randn(*unsup.shape) * 0.05).astype(np.float32),
+                    "masks": [rng.rand(n, 512) >= 0.5 for n in sizes]})
+            _check_toy_steps(f"{model}/{norm}", _toy_lockstep(sd, model, norm, draws))
+    check_s = time.perf_counter() - t0
+
+    out = {}
+    results = os.path.join(tmp, "toy2d")
+    for name, flags in TOY_RECIPES.items():
+        params = dict(toy_train.experiment.make_context(
+            "experiment", flags + [f"--num_epochs={TOY_EPOCHS}"]).params)
+        del params["job_desc"]
+        params["device"] = "cuda"
+        err = job.submit("toy2d_train", name, toy_train.train_toy2d, params,
+                         results_root=results)
+        run_dir = os.path.join(results, "toy2d_train", name)
+        with open(os.path.join(run_dir, f"log_{name}.txt")) as f:
+            log = f.read()
+        with open(os.path.join(run_dir, f"metrics_{name}.jsonl")) as f:
+            records = [json.loads(ln) for ln in f]
+        renders = sorted(p for p in os.listdir(run_dir) if p.startswith("epoch_"))
+        if ("FINAL RESULT: Error rate=" not in log or len(records) != TOY_EPOCHS
+                or len(renders) != TOY_EPOCHS + 1 or not 0.0 <= err <= 1.0):
+            raise RuntimeError(f"9c: the {name} line did not run to its end")
+        out[name] = {"err": float(err), "epoch_s": [r["epoch_time"] for r in records],
+                     "renders": len(renders)}
+    launches = build.launch_counts.get(KERNEL, 0)
+    note(f"[toy2d] 9c: 3 models x {len(NORMS)} norms, {TOY_STEPS} lockstep steps at width 512, GPU "
+         f"against CPU within phase 3's bounds ({check_s:.1f} s); the recipe lines at "
+         f"{TOY_EPOCHS} epochs: " + ", ".join(
+             f"{n} error {r['err']:.4%}, s/epoch {[round(s, 3) for s in r['epoch_s']]}, "
+             f"{r['renders']} renders" for n, r in out.items())
+         + f"; {launches} {KERNEL} launches")
+    return {"lines": out, "launches": launches, "check_s": check_s}
+
+
+def _check_toy_steps(name: str, steps: list) -> None:
+    """Phase 3's bounds for the lockstep toy2d steps (both devices from the
+    same state each step): losses rtol 1e-4, the confidence count within
+    two flips, every parameter within 2 lr x TOY_STEPS (a Dense bias that
+    feeds a BN has a rounding-noise gradient, which Adam turns into a step
+    of lr in either direction: 2 lr apart in one step), the statistics (BN's
+    running averages, SpectralNorm's u and sigma), the EMA teacher and the
+    Adam moments within STATS_RTOL relative to max(1, |value|)."""
+    stat = ("running", ".u", ".sigma", "teacher.", "adam.")
+    worst = worst_stats = 0.0
+    for i, step in enumerate(steps):
+        (mc, tc), (mg, tg) = step["cpu"], step["cuda"]
+        ok = (math.isclose(mc["sup_loss"], mg["sup_loss"], rel_tol=1e-4)
+              and abs(mc["conf_sum"] - mg["conf_sum"]) <= 2
+              and math.isclose(mc["cons_loss"], mg["cons_loss"], rel_tol=1e-4))
+        if not ok:
+            raise RuntimeError(f"toy2d {name} step {i}: cuda {mg} and cpu {mc} disagree")
+        for k, a in tc.items():
+            d = (a - tg[k]).abs()
+            if any(s in k for s in stat):
+                worst_stats = max(worst_stats, (d / a.abs().clamp_min(1.0)).max().item())
+            else:
+                worst = max(worst, d.max().item())
+    note(f"[toy2d] {name}: losses {[round(s['cuda'][0]['sup_loss'], 6) for s in steps]} (cuda); "
+         f"per step max |param cpu - cuda| {worst:.3g} (bound {2 * TOY_LR * TOY_STEPS:.3g}), "
+         "statistics, "
+         f"teacher and moments {worst_stats:.3g} (bound {STATS_RTOL})")
+    if worst > 2 * TOY_LR * TOY_STEPS + 1e-6 or worst_stats > STATS_RTOL:
+        raise RuntimeError(f"toy2d {name}: the states diverge between cuda and cpu")
+
+
 def rank_main(argv) -> int:
     """A rank process of phase 7a (two cards; ``out_dir`` is the results
     root), 7b, 8a or 8b."""
@@ -2055,6 +2516,12 @@ def main() -> int:
         spatial_steps = phase_spatial_steps(tmp)
         spatial_trainer = phase_spatial_trainer(tmp, voc_root)
         note(f"[phase 8] {time.perf_counter() - t8:.1f} s")
+        torch.cuda.empty_cache()
+        t9 = time.perf_counter()
+        serving = phase_serving(tmp)
+        tools = phase_tools(trainer)
+        toy2d = phase_toy2d(tmp)
+        note(f"[phase 9] {time.perf_counter() - t9:.1f} s")
     kernels = [{
         "name": KERNEL, "route": "cuda",
         "source": "cutmix_seg_tpu_torch/csrc/cutmix_blend.cu",
@@ -2094,7 +2561,10 @@ def main() -> int:
                              "trainer Cityscapes cutmix --spatial_train 2, rank 1 (phase 8b)":
                                  spatial_trainer["launches"][1],
                              "trainer Cityscapes cutmix world 1 (phase 8b)":
-                                 spatial_trainer["launches_world1"]},
+                                 spatial_trainer["launches_world1"],
+                             "serving export + calls (phase 9a)": serving["launches"],
+                             "evaluate_model (phase 9b)": tools["launches"],
+                             "toy2d steps + recipe lines (phase 9c)": toy2d["launches"]},
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
         "kernel_us": k["ms"] * 1e3, "plain_us": k["plain_ms"] * 1e3,

@@ -15,7 +15,12 @@ a GPU and without that argument they raise:
   * the steps alone, ``core.train_state.create_train_state`` and
     ``semisup.{mask_mt,ict,vat,aug_cons}.make_*_step``;
   * ``python -m cutmix_seg_tpu_torch.tools.synthetic_benchmark`` (``--device
-    cpu`` for the CPU).
+    cpu`` for the CPU);
+  * serving: ``tools.export_model`` (a ``torch.export`` artifact of the eval
+    net, ``serve.export``), ``serve.http`` (its HTTP host),
+    ``tools.serve_bench``, and ``tools.evaluate_model`` (a model.pt or a
+    checkpoint on a val or test split);
+  * ``python -m cutmix_seg_tpu_torch.toy2d.train``, the toy-2D trainer.
 
 The one hand-written kernel is the fused box-mask rasterise + CutMix blend
 (``csrc/cutmix_blend.cu``, wrapped by ``ops.cutmix.cutmix_blend``). It is
@@ -37,7 +42,10 @@ Layout:
              affine grid sampling (aug_mt's warps)
   semisup/   losses, EMA teacher, shared step pieces, the mask_mt, ICT, VAT and
              aug_mt steps
-  tools/     the synthetic convergence benchmark
+  serve/     the serving export and its HTTP host
+  tools/     the synthetic convergence benchmark, the data converters,
+             export_model, evaluate_model, serve_bench
+  toy2d/     the toy-2D datasets (a copy), MLP and trainer
   train/     the CLI options, the training engine, the four trainers
-  utils/     device resolution, consistency ramp-up
+  utils/     device resolution, consistency ramp-up, profiling
 """

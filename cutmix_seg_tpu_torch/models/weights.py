@@ -7,7 +7,11 @@
   of the JAX importer's ``map_torch_resnet`` and
   ``map_hung_deeplab_classifier``; every other family (``layout='tree'``)
   keeps the JAX module tree, with torchvision's ``layerN.B`` and
-  ``downsample.0/1`` inside a ResNet backbone.
+  ``downsample.0/1`` inside a ResNet backbone. The toy-2D MLP
+  (``layout='toy2d'``) maps Dense kernels (in, out) to ``weight`` (out, in),
+  flax's WeightNorm ``scale`` and SpectralNorm ``u`` / ``sigma`` (stored by
+  the wrapper as ``'dense0/kernel/scale'``) to ``dense0.scale`` / ``.u`` /
+  ``.sigma``.
 * Local-file loaders: ``load_resnet_deeplab2``, ``load_resnet_backbone`` and
   ``load_densenet_features`` fill a module from a torchvision or Hung et al.
   ``.pth`` in ``$CUTMIX_SEG_WEIGHTS``, copying a tensor only where the name
@@ -45,6 +49,12 @@ def torch_key(path: Tuple[str, ...], layout: str = "deeplab2") -> str:
     ('backbone', 'layer1_0', 'downsample_bn', 'scale') ->
     'layer1.0.downsample.1.weight' (deeplab2) or
     'backbone.layer1.0.downsample.1.weight' (tree)."""
+    if layout == "toy2d":
+        if "/" in path[-1]:  # ('WeightNorm_0', 'dense0/kernel/scale')
+            layer, _, leaf = path[-1].split("/")
+            return f"{layer}.{leaf}"
+        module, leaf = path
+        return f"{module}.{_LEAF[leaf]}"
     root, *mods, leaf = path
     if layout == "deeplab2":
         if root == "classifier":  # ('classifier', 'aspp<i>', 'kernel'|'bias')
@@ -76,8 +86,8 @@ def from_jax_variables(variables: Mapping, layout: str = "deeplab2") -> Dict[str
     for coll in ("params", "batch_stats"):
         for path, val in _flatten(variables.get(coll, {})):
             val = np.asarray(val, dtype=np.float32)
-            if path[-1] == "kernel":
-                val = np.transpose(val, (3, 2, 0, 1))  # HWIO -> OIHW
+            if path[-1] == "kernel":  # HWIO -> OIHW, or (in, out) -> (out, in)
+                val = np.transpose(val, (3, 2, 0, 1) if val.ndim == 4 else (1, 0))
             sd[torch_key(path, layout)] = torch.from_numpy(np.array(val, order="C"))
     return sd
 

@@ -90,7 +90,10 @@ def _mix_geometry(cfg: MaskConsistencyConfig, batch, generator, rects, mesh):
         rects = sample_box_rects(cfg.box, generator, global_rows(n, mesh), hw)
     rects = local_rows(rects, mesh)
     if cfg.mask_mode == "mix":
-        x_stu_cons, m = cutmix_blend(x, batch["ux1_stu"], rects, invert=cfg.box.invert)
+        # without colour jitter the augmented images are a channels-first
+        # buffer seen as NHWC; the blend takes dense NHWC
+        x_stu_cons, m = cutmix_blend(x.contiguous(), batch["ux1_stu"].contiguous(), rects,
+                                     invert=cfg.box.invert)
         loss_mask = batch["um0"] * (1.0 - m) + batch["um1"] * m
     else:
         m = rasterise_masks(rects, hw, invert=cfg.box.invert, dtype=x.dtype)

@@ -59,7 +59,10 @@ def test_every_module_imports_on_cpu():
                 "tools.synthetic_benchmark", "models.denseunet", "models.resunet",
                 "models.deeplab3", "models.pspnet", "data.resident", "tools.convert_cityscapes",
                 "tools.convert_isic", "tools.download_pascal_aug_names", "parallel.mesh",
-                "parallel.multi_seed", "train.multi_seed_mask_mt", "parallel.spatial"):
+                "parallel.multi_seed", "train.multi_seed_mask_mt", "parallel.spatial",
+                "serve.export", "serve.http", "tools.export_model", "tools.evaluate_model",
+                "tools.serve_bench", "utils.profiling", "toy2d.data", "toy2d.model",
+                "toy2d.train"):
         assert f"cutmix_seg_tpu_torch.{mod}" in names, mod
     for name in names:
         importlib.import_module(name)

@@ -98,6 +98,16 @@ def test_trainer_end_to_end(voc, tmp_path):
     assert _submit(tmp_path / "results", "run1") is None
 
 
+def test_cutmix_without_colour_jitter(voc, tmp_path):
+    """Without --aug_strong_colour the augmented pair is a channels-first
+    buffer seen as NHWC; the CutMix blend still takes it."""
+    eng = _submit(tmp_path / "results", "nocolour", aug_strong_colour=False, num_epochs=1,
+                  iters_per_epoch=2, save_model=False)
+    assert eng.state.step == 2
+    log = (tmp_path / "results" / "test_torch_mask_mt" / "nocolour" / "log_nocolour.txt")
+    assert "Epoch 1:" in log.read_text()
+
+
 def test_resume_is_bit_exact_continuation(voc, tmp_path):
     """Two epochs straight and one epoch + --resume to two end in the same
     checkpoint, bit for bit (CPU ops are deterministic)."""
