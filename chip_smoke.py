@@ -123,7 +123,22 @@ Phases, in order; any failure exits non-zero before the result lines:
      norm at width 512, 3 steps on the CPU and the card in lockstep with
      injected draws, phase 3's bounds, then run_toy2d_experiments.sh's three
      lines through the port's CLI at 2 epochs: error, s/epoch, renders;
-  10. the kernel summary line and, last, the device line.
+  10. the convergence sweep and the patch-distance study: 10a
+     tools/multi_seed_convergence with all six arms at the tool's widths
+     (64x64, batch 8, 6 + 256 + 64 images a seed), 2 seeds x 100 iterations:
+     every arm's line and s/arm, the peak, the CutMix kernel's launches per
+     arm (one per seed per iteration on the CutMix arm, none elsewhere), the
+     CutMix arm's steady ms/iteration (cuDNN's search off, as in the tool's
+     own process), and that arm for 3 iterations on the CPU and the card in
+     lockstep (f32, TF32 off, injected rects, phase 3's bounds); 10b
+     analysis.patch_dist's distances card against CPU at a
+     small size, then a 1024x2048 frame of phase 6d's official zip against
+     32 anchors of 225^2 in f32 and in TF32 (ms, peak, the self-match
+     distances, how many nearest-neighbour orders TF32 changes, chunking),
+     class_distances on 4 converted Cityscapes frames (device and host ms
+     apart), and the two studies' statistics (input distribution on those
+     frames, colour on the VOC tree);
+  11. the kernel summary line and, last, the device line.
 
 Imports nothing of JAX: it runs where only PyTorch and the CUDA toolkit are.
 ``python3 chip_smoke.py --rank-of <kind> <dir> ...`` is a rank process of
@@ -139,6 +154,7 @@ import io
 import json
 import math
 import os
+import pickle
 import socket
 import subprocess
 import sys
@@ -199,6 +215,7 @@ from cutmix_seg_tpu_torch.semisup.vat import (
     adversarial_input,
     make_vat_step,
 )
+from cutmix_seg_tpu_torch.tools import multi_seed_convergence as tconv
 from cutmix_seg_tpu_torch.tools.convert_cityscapes import convert_cityscapes
 from cutmix_seg_tpu_torch.train import aug_mt, common, ict, vat_mt
 from cutmix_seg_tpu_torch.train import multi_seed_mask_mt as mseed
@@ -212,6 +229,7 @@ PEAK_F32_OPS_PER_S = 67e12
 MAIN_SHAPE = (10, 321, 321, 3)  # bench.py: 10 unsupervised images per batch, 321^2
 ISIC_SHAPE = (10, 224, 224, 3)  # the ISIC recipe's CutMix blend: 10 images, 224^2
 CITY_SHAPE = (4, 256, 512, 3)  # the Cityscapes recipe's: 4 images, 256x512 crops
+SWEEP_SHAPE = (8, 64, 64, 3)  # the convergence sweep's CutMix arm: batch 8, 64^2 RGB
 BATCH, CROP, NUM_CLASSES = 10, 321, 21
 WARMUP, ITERS = 3, 10
 # phase 5: augmented images agree within float32 rounding: source coordinates
@@ -298,6 +316,7 @@ def phase_kernel_vs_plain() -> dict:
         "main_path": (*MAIN_SHAPE, half, True, 0),
         "isic_224": (*ISIC_SHAPE, half, True, 0),
         "cityscapes_256x512": (*CITY_SHAPE, half, True, 0),
+        "sweep_64": (*SWEEP_SHAPE, half, True, 0),
         "two_boxes_64": (4, 64, 64, 3, dict(prop_range=(0.25, 0.75), n_boxes=2), True, 0),
         "odd_height_no_invert": (2, 33, 48, 1, dict(prop_range=(0.5, 0.5), invert=False),
                                  False, 0),
@@ -392,7 +411,16 @@ def phase_kernel_vs_plain() -> dict:
          f"{bound_city * 1e3:.2f} us ({bytes_city / 1e6:.2f} MB at 3.35 TB/s; "
          f"{bound_city / ms_city:.1%} of the bound); bf16 {ms_city_bf16 * 1e3:.2f} us, bound "
          f"{bound_city_bf16 * 1e3:.2f} us; plain version f32 {plain_city * 1e3:.2f} us")
+    # the convergence sweep's shape (phase 10a's CutMix arm)
+    xs0, xs1, rs = _case_inputs(*SWEEP_SHAPE, half, torch.float32, 0)
+    ms_sweep = _time_ms(lambda: cutmix_blend(xs0, xs1, rs), flush)
+    plain_sweep = _time_ms(lambda: cutmix_blend_plain(xs0, xs1, rs), flush)
+    bound_sweep, bytes_sweep, by_sweep = _bound_ms(xs0, rs)
+    note(f"[kernel] sweep path f32 {SWEEP_SHAPE}: kernel {ms_sweep * 1e3:.2f} us, bound "
+         f"{bound_sweep * 1e3:.2f} us ({bytes_sweep / 1e6:.3f} MB at 3.35 TB/s, {by_sweep}; "
+         f"{bound_sweep / ms_sweep:.1%} of the bound); plain version {plain_sweep * 1e3:.2f} us")
     return {"max_abs_err": max_err, "ms": ms["kernel f32"], "plain_ms": plain_ms,
+            "ms_sweep": ms_sweep, "plain_ms_sweep": plain_sweep, "bound_ms_sweep": bound_sweep,
             "bound_ms": bound_ms, "bound_by": bound_by, "ms_bf16": ms["kernel bf16"],
             "bound_ms_bf16": bf16_bound_ms, "yardstick_gbps": gbps["torch.add f32"],
             "ms_224": ms_224, "plain_ms_224": plain_224, "bound_ms_224": bound_224,
@@ -2441,6 +2469,371 @@ def _check_toy_steps(name: str, steps: list) -> None:
         raise RuntimeError(f"toy2d {name}: the states diverge between cuda and cpu")
 
 
+# phase 10a: the multi-seed convergence sweep at the tool's widths (64^2,
+# batch 8, 6 labelled / 256 unlabelled / 64 val images a seed), its depth
+# cut to 2 seeds x 100 iterations
+SWEEP_SEEDS, SWEEP_ITERS, SWEEP_LOCKSTEP, SWEEP_TIMED = 2, 100, 3, 20
+
+
+def _sweep_arm(dev, arm: str, iters: int, conf_thresh: float, steps_seen=None):
+    """(run_arm, states, data, stream, ramps) of one arm of the sweep at its
+    widths on ``dev``; ``steps_seen`` collects each step's host metrics."""
+    hw = (tconv.HW[0], tconv.HW[1])
+    seeds = list(range(SWEEP_SEEDS))
+    cfg, make_step, algorithm = tconv.arm_configs(conf_thresh)[arm]
+    opt_cfg = OptimizerConfig(opt_type="adam", learning_rate=1e-3)
+    states, models = tconv.init_states(seeds, opt_cfg, dev)
+    if steps_seen is not None:
+        inner = make_step
+
+        def make_step(model, opt, cfg):
+            step = inner(model, opt, cfg)
+
+            def rec_step(*args, **kw):
+                state, m = step(*args, **kw)
+                steps_seen.append({k: v.item() for k, v in m.items()})
+                return state, m
+
+            return rec_step
+    run = tconv.make_arm_runner(cfg, make_step, algorithm, models, 8, hw=hw)
+    data = {}
+    for k, s in enumerate(seeds):
+        d = tconv.build_seed_data(s, 6, 256, 64, aug_src=algorithm == "aug_mt", hw=hw)
+        data[k] = {"sup_x": torch.from_numpy(d["sup_x"]).to(dev),
+                   "sup_y": torch.from_numpy(d["sup_y"]).long().to(dev),
+                   "unsup_x": torch.from_numpy(d["unsup_x"]).to(dev)}
+    stream = {n: torch.from_numpy(a).long().to(dev)
+              for n, a in tconv.index_streams(iters, 8, seeds, 6, 256).items()}
+    ramps = np.minimum(1.0, np.arange(iters) / (iters * 0.3)).astype(np.float32)
+    return run, states, data, stream, ramps
+
+
+@torch.no_grad()
+def _sync_sweep_states(dst: dict, src: dict) -> None:
+    """Copy each seed's train state (nets, Adam moments, counts) from src."""
+    for k, a in dst.items():
+        b = src[k]
+        a.student.load_state_dict(b.student.state_dict())
+        a.teacher.load_state_dict(b.teacher.state_dict())
+        for ga, gb in zip(a.optimizer.groups, b.optimizer.groups):
+            for name in ga.state:
+                for ta, tb in zip(ga.state[name], gb.state[name]):
+                    ta.copy_(tb)
+        a.optimizer.count, a.step = b.optimizer.count, b.step
+
+
+def _sweep_lockstep() -> None:
+    """The CutMix arm for SWEEP_LOCKSTEP iterations on the CPU and the card
+    in lockstep (each iteration of both from the CPU's states), f32 with
+    TF32 off, the same rects on both, phase 3's bounds per iteration. The
+    seeds start from phase 3's He-scaled weights (O(1) logits; the tool's
+    initialisation gives near-uniform ones, whose consistency loss is
+    rounding noise) with the gate at 0, so the consistency loss is on."""
+    rng = np.random.RandomState(10)
+    rects = {(t, k): sample_box_rects_np(BoxMaskConfig((0.5, 0.5)), 8, tconv.HW, rng)
+             for t in range(SWEEP_LOCKSTEP) for k in range(SWEEP_SEEDS)}
+    seen = {"cpu": [], "cuda": []}
+    arms = {dev: _sweep_arm(dev, "mask_mt", SWEEP_LOCKSTEP, 0.0, seen[dev])
+            for dev in ("cpu", "cuda")}
+    for k in range(SWEEP_SEEDS):
+        sd = _tiny_weights(30 + k, tconv.make_model().module)
+        for _, states, *_ in arms.values():
+            states[k].student.load_state_dict(sd)
+            states[k].teacher.load_state_dict(sd)
+    for t in range(SWEEP_LOCKSTEP):
+        runs = {}
+        for dev, (run, states, data, stream, ramps) in arms.items():
+            n0 = len(seen[dev])
+            run(states, data, {n: v[t:t + 1] for n, v in stream.items()}, ramps[t:t + 1],
+                draws=lambda _t, k, dev=dev, t=t: {
+                    "rects": torch.from_numpy(rects[t, k]).to(dev)})
+            tensors = {f"{k}.{part}.{n}": v.to("cpu", copy=True)
+                       for k, st in states.items()
+                       for part, net in (("student", st.student), ("teacher", st.teacher))
+                       for n, v in net.state_dict().items()}
+            runs[dev] = (seen[dev][n0:], [tensors])
+        _check_small_run(f"sweep mask_mt iteration {t}", runs, 8 * 64 * 64, 1, 1e-3)
+        _sync_sweep_states(arms["cuda"][1], arms["cpu"][1])
+
+
+def phase_sweep(tmp: str) -> dict:
+    """10a: tools/multi_seed_convergence on the card, all six arms at
+    SWEEP_SEEDS x SWEEP_ITERS (one kernel launch per seed per iteration on
+    the CutMix arm, none on the others); the CutMix arm's steady
+    ms/iteration; the CutMix arm on the CPU and the card in lockstep."""
+    per_arm, t_arm = {}, [time.perf_counter()]
+
+    def log(msg: str) -> None:
+        note(f"[sweep] {msg}")
+        arm = msg.split(" ", 1)[0]
+        if arm in tconv.ARMS:
+            per_arm[arm] = {"launches": build.launch_counts.get(KERNEL, 0),
+                            "s": time.perf_counter() - t_arm[-1]}
+            build.launch_counts.clear()
+            t_arm.append(time.perf_counter())
+
+    # as in the tool's own process: earlier phases turned cuDNN's search on
+    torch.backends.cudnn.benchmark = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    build.launch_counts.clear()
+    t_arm[0] = time.perf_counter()
+    doc = tconv.run_sweep(SWEEP_ITERS, SWEEP_SEEDS, 6, 256, 64, 8, ",".join(tconv.ARMS[1:]),
+                          tconv.HW[0], "shapes", 0.8, False, os.path.join(tmp, "sweep"),
+                          device="cuda", log=log)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    with open(os.path.join(tmp, "sweep", "results.json")) as f:
+        if json.load(f) != doc:
+            raise RuntimeError("10a: results.json differs from the returned document")
+    want_keys = {"task", "n_seeds", "iters", "n_sup", "configs", "arms", "total_seconds",
+                 "device"}
+    if set(doc) != want_keys or doc["device"] != torch.cuda.get_device_name(0):
+        raise RuntimeError(f"10a: unexpected document keys {sorted(doc)} / {doc['device']}")
+    for arm in tconv.ARMS:
+        r = doc["arms"][arm]
+        want = SWEEP_SEEDS * SWEEP_ITERS if arm == "mask_mt" else 0
+        if per_arm[arm]["launches"] != want:
+            raise RuntimeError(f"10a: {arm}: {per_arm[arm]['launches']} {KERNEL} launches, "
+                               f"expected {want}")
+        if not (len(r["miou_per_seed"]) == SWEEP_SEEDS
+                and all(0.0 <= m <= 1.0 for m in r["miou_per_seed"])
+                and math.isfinite(r["final_sup_loss_mean"])):
+            raise RuntimeError(f"10a: {arm}: {r}")
+    note("[sweep] 10a: " + ", ".join(
+        f"{arm} {per_arm[arm]['s']:.2f} s ({per_arm[arm]['s'] / SWEEP_ITERS * 1e3:.2f} "
+        f"ms/iteration with data, init and eval), {per_arm[arm]['launches']} launches"
+        for arm in tconv.ARMS) + f"; sweep {doc['total_seconds']} s; peak +{peak:.3f} GiB")
+
+    # the CutMix arm's steady iteration (both seeds), data and init apart
+    run, states, data, stream, ramps = _sweep_arm("cuda", "mask_mt", SWEEP_TIMED + 2, 0.8)
+    run(states, data, {n: v[:2] for n, v in stream.items()}, ramps[:2])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(states, data, {n: v[2:] for n, v in stream.items()}, ramps[2:])
+    torch.cuda.synchronize()
+    ms_iter = (time.perf_counter() - t0) / SWEEP_TIMED * 1e3
+    note(f"[sweep] 10a: CutMix arm, {SWEEP_SEEDS} seeds in turn: {ms_iter:.2f} ms/iteration "
+         f"steady ({SWEEP_TIMED} iterations after 2; "
+         f"{ms_iter / SWEEP_SEEDS:.2f} ms per seed step)")
+    del run, states, data
+    t0 = time.perf_counter()
+    _sweep_lockstep()
+    note(f"[sweep] 10a: lockstep check {time.perf_counter() - t0:.1f} s")
+    return {"doc": doc, "per_arm": per_arm, "ms_per_iter": ms_iter, "peak_mem_gib": peak,
+            "launches": per_arm["mask_mt"]["launches"]}
+
+
+# phase 10b: the patch-distance study. The tolerance of a squared distance:
+# PATCH_SUM_EPS x (the integral image's total + the cross term's p*q*C)
+PATCH_SUM_EPS = 4 * float(np.finfo(np.float32).eps)
+BIG_ANCHORS, BIG_PATCH, STUDY_FRAMES, STUDY_NEIGHBOURS = 32, 225, 4, 1000
+
+
+def _dist_close(got: torch.Tensor, want: torch.Tensor, sqr_tol: float) -> float:
+    """Largest |got - want| of two distance maps over its bound: sqr_tol on
+    the squared distance, so sqrt(sqr_tol) near 0 and sqr_tol / (2 d)
+    elsewhere. A value above 1 fails."""
+    got, want = got.double(), want.double()
+    bound = torch.minimum(torch.full_like(want, math.sqrt(sqr_tol)),
+                          sqr_tol / (2 * want).clamp_min(1e-30)) + 1e-7
+    return ((got - want).abs() / bound).max().item()
+
+
+def _padded(image: np.ndarray, patch: int) -> np.ndarray:
+    pad = (patch - 1) // 2
+    return np.pad(image, [(pad, pad), (pad, pad), (0, 0)], mode="symmetric")
+
+
+class _Frames:
+    """A dataset source over given (image, labels) pairs."""
+
+    def __init__(self, pairs):
+        self.pairs = pairs
+        self.train_ndx = np.arange(len(pairs))
+
+    def get_image(self, i):
+        return self.pairs[i][0]
+
+    def get_labels(self, i):
+        return self.pairs[i][1]
+
+
+def _timed(fn, reps: int = 3):
+    """(result, median device ms of ``reps`` calls after one warm-up)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return out, float(np.median(times))
+
+
+def phase_patch_study(tmp: str, voc_root: str) -> dict:
+    """10b: _sliding_distances card vs CPU (TF32 off) at a small size; a
+    1024x2048 frame against BIG_ANCHORS anchors of BIG_PATCH^2 in f32 and
+    TF32 (ms, peak, the self-match distances, the nearest-neighbour orders
+    TF32 changes, the chunking); class_distances on STUDY_FRAMES converted
+    Cityscapes frames (device and host ms apart); the studies' statistics."""
+    import zipfile
+
+    from PIL import Image
+
+    from cutmix_seg_tpu_torch.analysis import colour_aug_study as colour_study
+    from cutmix_seg_tpu_torch.analysis import input_distribution_study as input_study
+    from cutmix_seg_tpu_torch.analysis import intra_inter_class_patch_dist as study
+    from cutmix_seg_tpu_torch.analysis import patch_dist, plot_patch_distances
+    from cutmix_seg_tpu_torch.data import datasets
+
+    torch.backends.cudnn.benchmark = False  # as in the scripts' own processes
+    build.launch_counts.clear()
+    rng = np.random.RandomState(20)
+    # small: card against CPU
+    image = rng.rand(64, 96, 3).astype(np.float32)
+    patches = np.stack([patch_dist.extract_patch(image, (15, 15), (20 + 3 * i, 30 + 5 * i))
+                        for i in range(8)])
+    padded = _padded(image, 15)
+    ref = patch_dist._sliding_distances(*(torch.from_numpy(a) for a in (padded, patches)))
+    got = patch_dist._sliding_distances(*(torch.from_numpy(a).cuda() for a in (padded, patches)))
+    tol = PATCH_SUM_EPS * (float((padded.astype(np.float64) ** 2).sum()) + 15 * 15 * 3)
+    worst = _dist_close(got.cpu(), ref, tol)
+    note(f"[patch] 10b: _sliding_distances 64x96, 8 patches of 15^2, card vs CPU (TF32 off): "
+         f"worst |d| over its bound {worst:.3g}")
+    if worst > 1.0:
+        raise RuntimeError("10b: _sliding_distances differs between the card and the CPU")
+
+    # one official 1024x2048 frame (phase 6d's synthetic zip) and its label ids
+    with zipfile.ZipFile(os.path.join(tmp, "leftImg8bit_trainvaltest.zip")) as zx, \
+            zipfile.ZipFile(os.path.join(tmp, "gtFine_trainvaltest.zip")) as zy:
+        xn = sorted(n for n in zx.namelist() if n.startswith("leftImg8bit/train/"))[0]
+        yn = xn.replace("leftImg8bit/", "gtFine/", 1).replace("_leftImg8bit.png",
+                                                             "_gtFine_labelIds.png")
+        img_u8 = np.array(Image.open(io.BytesIO(zx.read(xn))))
+        labels = np.array(Image.open(io.BytesIO(zy.read(yn)))).astype(np.int32)
+    frame = img_u8.astype(np.float64) / 255.0
+    big = _Frames([(img_u8, labels)])
+    ids = study.choose_anchors_and_negatives(big, big.train_ndx, BIG_ANCHORS,
+                                             (BIG_PATCH, BIG_PATCH), np.random.RandomState(0))
+    anchors, _ = study.extract_anchor_and_negative_patches(big, ids, (BIG_PATCH, BIG_PATCH))
+    img_d = torch.from_numpy(_padded(frame, BIG_PATCH)).float().cuda()
+    pat_d = torch.from_numpy(anchors).float().cuda()
+    runs = {}
+    for name, tf32 in (("f32", False), ("tf32", True)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out, ms = _timed(lambda tf32=tf32: patch_dist._sliding_distances(img_d, pat_d, tf32=tf32))
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        self_d = out[torch.arange(len(ids)), torch.from_numpy(ids[:, 2]).cuda(),
+                     torch.from_numpy(ids[:, 3]).cuda()]
+        runs[name] = {"out": out, "ms": ms, "peak_gib": peak, "self": self_d.cpu().numpy()}
+    n_px = frame.shape[0] * frame.shape[1]
+    flops = 2.0 * BIG_ANCHORS * BIG_PATCH * BIG_PATCH * 3 * n_px
+    f32, tf = runs["f32"], runs["tf32"]
+    order_f32 = torch.topk(f32["out"].reshape(BIG_ANCHORS, -1), STUDY_NEIGHBOURS,
+                           largest=False).indices
+    order_tf = torch.topk(tf["out"].reshape(BIG_ANCHORS, -1), STUDY_NEIGHBOURS,
+                          largest=False).indices
+    changed = (order_f32 != order_tf)
+    chunked = patch_dist._sliding_distances(img_d, pat_d, chunk=8)
+    sqr_tol = PATCH_SUM_EPS * (float((img_d.double() ** 2).sum()) + BIG_PATCH ** 2 * 3)
+    chunk_worst = _dist_close(chunked, f32["out"], sqr_tol)
+    note(f"[patch] 10b: 1024x2048 frame, {BIG_ANCHORS} anchors of {BIG_PATCH}^2 "
+         f"({flops / 1e12:.2f} TFLOP of cross term): f32 {f32['ms']:.2f} ms "
+         f"({flops / f32['ms'] / 1e9:.1f} TFLOP/s), peak +{f32['peak_gib']:.3f} GiB; TF32 "
+         f"{tf['ms']:.2f} ms ({flops / tf['ms'] / 1e9:.1f} TFLOP/s), peak "
+         f"+{tf['peak_gib']:.3f} GiB; self-match distance at the anchors' centres: f32 max "
+         f"{f32['self'].max():.4g} (mean {f32['self'].mean():.4g}), TF32 max "
+         f"{tf['self'].max():.4g} (mean {tf['self'].mean():.4g}); TF32 changes the "
+         f"{STUDY_NEIGHBOURS}-nearest order of {int(changed.any(dim=1).sum())} of "
+         f"{BIG_ANCHORS} anchors ({int(changed.sum())} of {changed.numel()} ranks); max "
+         f"|d_tf32 - d_f32| {(tf['out'] - f32['out']).abs().max().item():.4g}; chunks of 8 "
+         f"against one conv: worst |d| over its bound {chunk_worst:.3g}")
+    note("[patch] 10b: self-match distance per anchor, f32 "
+         f"{[round(float(v), 3) for v in f32['self']]}; TF32 "
+         f"{[round(float(v), 3) for v in tf['self']]}")
+    if chunk_worst > 1.0 or not np.isfinite(f32["self"]).all():
+        raise RuntimeError("10b: the chunked distances differ, or a self-match is not finite")
+    big_out = {"ms_f32": f32["ms"], "ms_tf32": tf["ms"], "peak_gib": f32["peak_gib"],
+               "self_f32_max": float(f32["self"].max()), "self_tf32_max": float(tf["self"].max()),
+               "orders_changed": int(changed.any(dim=1).sum())}
+    del runs, f32, tf, chunked, order_f32, order_tf, img_d, pat_d
+
+    # class_distances on converted Cityscapes frames, through the loader
+    os.environ["CUTMIX_SEG_CONFIG"] = write_config(
+        os.path.join(tmp, "seg_study.cfg"), voc_root,
+        cityscapes_zip=os.path.join(tmp, "cityscapes.zip"))
+    settings._config = None
+    ds = datasets.load_dataset("cityscapes", n_val=0, val_seed=0, n_sup=-1, n_unsup=-1,
+                               split_seed=12345, split_path=None)["ds_src"]
+    ds.train_ndx = ds.train_ndx[:STUDY_FRAMES]
+    ids = study.choose_anchors_and_negatives(ds, ds.train_ndx, BIG_ANCHORS,
+                                             (BIG_PATCH, BIG_PATCH), np.random.RandomState(1))
+    anchors, negatives = study.extract_anchor_and_negative_patches(ds, ids,
+                                                                   (BIG_PATCH, BIG_PATCH))
+    patch_dist.sliding_window_distance_to_patches(
+        ds.get_image(int(ds.train_ndx[0])).astype(np.float64) / 255.0, anchors, "cuda")
+    dev_ms = 0.0  # after a warm-up call, as class_distances runs warm below
+    for i in ds.train_ndx:
+        img = ds.get_image(int(i)).astype(np.float64) / 255.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        patch_dist.sliding_window_distance_to_patches(img, anchors, "cuda")
+        dev_ms += (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    res = study.class_distances(ds, ids, anchors, STUDY_NEIGHBOURS, "cuda")
+    total_ms = (time.perf_counter() - t0) * 1e3
+    res["anchor_negative_img_dir_y_x_cls"] = ids
+    res["boundary_dists"] = np.sqrt(((anchors - negatives) ** 2).sum(axis=(1, 2, 3)))
+    pkl = os.path.join(tmp, "study.pkl")
+    with open(pkl, "wb") as f:
+        pickle.dump(res, f)
+    summary = plot_patch_distances.distance_summary(plot_patch_distances.load_results([pkl]), 10)
+    for i, row in enumerate(ids):
+        if not np.array_equal(res["same_image_intra_class_coords"][i][0], row[[0, 2, 3]]):
+            raise RuntimeError(f"10b: anchor {i}'s nearest same-image window is not itself")
+    h, w = ds.get_image(int(ds.train_ndx[0])).shape[:2]
+    note(f"[patch] 10b: class_distances, {STUDY_FRAMES} converted Cityscapes frames {h}x{w}, "
+         f"{BIG_ANCHORS} anchors of {BIG_PATCH}^2, {STUDY_NEIGHBOURS} neighbours: "
+         f"{total_ms:.1f} ms, of it distance maps on the card and their copy "
+         f"{dev_ms:.1f} ms, host ranking (argsort) {total_ms - dev_ms:.1f} ms; "
+         f"k=10 means: intra same-image median {np.nanmedian(summary['same_image_intra']):.4f}, "
+         f"inter {np.nanmedian(summary['same_image_inter']):.4f}, across-boundary "
+         f"{np.median(summary['boundary']):.4f}; boundary farther than the intra mean for "
+         f"{summary['frac_boundary_farther']:.3f} of anchors")
+
+    # the two studies' statistics: input distribution on those frames (the
+    # synthetic VOC tree's blocks are apart by a 255 band: no class boundary),
+    # colour on the VOC tree
+    t0 = time.perf_counter()
+    ratios = input_study.boundary_ratios(ds, input_study.pick_images(ds, STUDY_FRAMES, 12345),
+                                         15, "cuda")
+    voc = datasets.load_dataset("pascal", n_val=-1, val_seed=131, n_sup=-1, n_unsup=-1,
+                                split_seed=12345, split_path=None)["ds_src"]
+    originals = colour_study.load_originals(voc, 4, 0)
+    augmented = colour_study.jittered_variants(originals, 6, colour_study.study_config(),
+                                               torch.Generator(device="cuda").manual_seed(0))
+    hists = colour_study.channel_histograms(originals, augmented)
+    if not (np.isfinite(ratios).all() and len(augmented) == 24
+            and all(a.min() >= 0.0 and a.max() <= 1.0 for a in augmented)):
+        raise RuntimeError(f"10b: study statistics: ratios {ratios}")
+    note(f"[patch] 10b: input-distribution boundary / non-boundary ratios (15^2) "
+         f"{np.round(ratios, 4).tolist()}; colour study on the VOC tree: 4 images x 6 "
+         "variants, mean R/G/B before " + "/".join(
+             f"{np.concatenate([o[..., c].ravel() for o in originals]).mean():.3f}"
+             for c in range(3)) + " after " + "/".join(
+             f"{np.concatenate([a[..., c].ravel() for a in augmented]).mean():.3f}"
+             for c in range(3)) + f", {len(hists)} channel histograms; "
+         f"{time.perf_counter() - t0:.1f} s; {build.launch_counts.get(KERNEL, 0)} "
+         f"{KERNEL} launches")
+    return {"big": big_out, "study_ms": total_ms, "study_device_ms": dev_ms,
+            "launches": build.launch_counts.get(KERNEL, 0)}
+
+
 def rank_main(argv) -> int:
     """A rank process of phase 7a (two cards; ``out_dir`` is the results
     root), 7b, 8a or 8b."""
@@ -2522,6 +2915,11 @@ def main() -> int:
         tools = phase_tools(trainer)
         toy2d = phase_toy2d(tmp)
         note(f"[phase 9] {time.perf_counter() - t9:.1f} s")
+        torch.cuda.empty_cache()
+        t10 = time.perf_counter()
+        sweep = phase_sweep(tmp)
+        patch_study = phase_patch_study(tmp, voc_root)
+        note(f"[phase 10] {time.perf_counter() - t10:.1f} s")
     kernels = [{
         "name": KERNEL, "route": "cuda",
         "source": "cutmix_seg_tpu_torch/csrc/cutmix_blend.cu",
@@ -2564,7 +2962,11 @@ def main() -> int:
                                  spatial_trainer["launches_world1"],
                              "serving export + calls (phase 9a)": serving["launches"],
                              "evaluate_model (phase 9b)": tools["launches"],
-                             "toy2d steps + recipe lines (phase 9c)": toy2d["launches"]},
+                             "toy2d steps + recipe lines (phase 9c)": toy2d["launches"],
+                             **{f"sweep {arm} arm, {SWEEP_SEEDS} seeds x {SWEEP_ITERS} "
+                                f"iterations (phase 10a)": r["launches"]
+                                for arm, r in sweep["per_arm"].items()},
+                             "patch-distance study (phase 10b)": patch_study["launches"]},
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
         "kernel_us": k["ms"] * 1e3, "plain_us": k["plain_ms"] * 1e3,
@@ -2574,6 +2976,8 @@ def main() -> int:
         "bound_ms_224": k["bound_ms_224"], "ms_city": k["ms_city"],
         "ms_city_bf16": k["ms_city_bf16"], "plain_ms_city": k["plain_ms_city"],
         "bound_ms_city": k["bound_ms_city"], "bound_ms_city_bf16": k["bound_ms_city_bf16"],
+        "ms_sweep": k["ms_sweep"], "plain_ms_sweep": k["plain_ms_sweep"],
+        "bound_ms_sweep": k["bound_ms_sweep"],
     }]
     note(f"[done] {time.perf_counter() - t_start:.1f} s")
     note(smi)  # again beside the results: the tail of the output is what is kept

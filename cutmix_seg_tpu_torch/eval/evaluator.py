@@ -47,5 +47,15 @@ def predict(net: nn.Module, batch, mean, std):
 def eval_confusion(net: nn.Module, batch, num_classes: int, mean, std,
                    ignore_value: int = 255) -> torch.Tensor:
     """(C, C) int64 confusion matrix of a raw eval batch, on its device."""
-    pred, y = predict(net, batch, mean, std)
+    x, y, _ = normalise_eval_batch(batch, mean, std)
+    return eval_confusion_normalised(net, x, y, num_classes, ignore_value)
+
+
+@torch.no_grad()
+def eval_confusion_normalised(net: nn.Module, x: torch.Tensor, y: torch.Tensor,
+                              num_classes: int, ignore_value: int = 255) -> torch.Tensor:
+    """(C, C) int64 confusion matrix of images already normalised (the
+    counterpart of JAX's ``make_eval_cm_fn``), the net in eval mode."""
+    with eval_mode(net):
+        pred = net(x).argmax(dim=-1)
     return confusion_matrix(pred, y, num_classes, ignore_value)

@@ -62,7 +62,9 @@ def test_every_module_imports_on_cpu():
                 "parallel.multi_seed", "train.multi_seed_mask_mt", "parallel.spatial",
                 "serve.export", "serve.http", "tools.export_model", "tools.evaluate_model",
                 "tools.serve_bench", "utils.profiling", "toy2d.data", "toy2d.model",
-                "toy2d.train"):
+                "toy2d.train", "tools.multi_seed_convergence", "analysis.patch_dist",
+                "analysis.intra_inter_class_patch_dist", "analysis.input_distribution_study",
+                "analysis.colour_aug_study", "analysis.plot_patch_distances"):
         assert f"cutmix_seg_tpu_torch.{mod}" in names, mod
     for name in names:
         importlib.import_module(name)
@@ -82,6 +84,23 @@ def test_entry_points_need_a_gpu_or_device_cpu(monkeypatch):
     state, _ = create_train_state(model, OptimizerConfig(), 0, device="cpu",
                                   pretrained=False)
     assert next(state.student.parameters()).device.type == "cpu"
+
+
+@pytest.mark.parametrize("module", ["tools.multi_seed_convergence",
+                                    "analysis.intra_inter_class_patch_dist",
+                                    "analysis.input_distribution_study",
+                                    "analysis.colour_aug_study"])
+def test_device_clis_need_a_gpu_or_device_cpu(module, monkeypatch, tmp_path):
+    """The sweep and the studies refuse to start without a GPU, before any
+    data loads; ``--device cpu`` is accepted."""
+    from click.testing import CliRunner
+
+    main = importlib.import_module(f"cutmix_seg_tpu_torch.{module}").main
+    assert any(p.name == "device" for p in main.params)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = ["--out", str(tmp_path)] if module.startswith("tools") else [str(tmp_path / "out")]
+    res = CliRunner().invoke(main, args)
+    assert res.exit_code != 0 and "CUDA is not available" in str(res.exception)
 
 
 def test_kernel_sources_and_flags():
