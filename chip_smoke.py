@@ -96,11 +96,13 @@ Phases, in order; any failure exits non-zero before the result lines:
      and the peak with two states resident;
   8. spatial partitioning (--spatial_train, --eval_spatial at world 2), two
      rank processes sharing the card over gloo: 8a the tiny DeepLab v2's
-     CutMix and Cutout steps (f32, TF32 off, 2 steps, 36-row crops whose
-     feature maps split unevenly and whose ASPP windows reach past the
-     neighbouring rank) with each image's rows split over the ranks,
-     against one process on the same batch: ranks bit-identical, within
-     phase 3's bounds, one launch per rank per CutMix step; 8b the
+     CutMix, Cutout, ICT, VAT (adaptive radius) and aug_mt steps and the
+     tiny DeepLab v3+'s CutMix step (host-drawn dropout masks) (f32, TF32
+     off, 2 steps, 36-row crops whose feature maps split unevenly and whose
+     ASPP windows reach past the neighbouring rank) with each image's rows
+     split over the ranks, against one process on the same batch: ranks
+     bit-identical, within phase 3's bounds, one launch per rank per CutMix
+     step and none on the other steps; 8b the
      Cityscapes CutMix line (phase 6d's flags and converted frames) with
      --spatial_train 2 and --eval_spatial through job.submit, 2 epochs x 3
      iterations: the epoch line, epoch 2's ms/iteration, each rank's peak
@@ -138,11 +140,24 @@ Phases, in order; any failure exits non-zero before the result lines:
      class_distances on 4 converted Cityscapes frames (device and host ms
      apart), and the two studies' statistics (input distribution on those
      frames, colour on the VOC tree);
-  11. the kernel summary line and, last, the device line.
+  11. the rest of spatial partitioning and the native decoder: 11a four
+     lines at full width on phase 6d's converted Cityscapes frames (bf16, bs
+     4, 256x512 crops, 2 epochs x 2 iterations, eval each epoch): CutMix on
+     DeepLab v3+ R101 and the ICT, VAT and aug_mt regularisers on DeepLab v2
+     R101, each at world 1 in this process and then with --spatial_train 2
+     --eval_spatial over two gloo ranks sharing the card: the epoch lines,
+     ms/iteration, each rank's peak memory, the kernel's launches per rank
+     (one per iteration on the CutMix line, none on the others) and the
+     split eval's val pixels that differ from world 1's (each must be a
+     near tie); 11b whether the native PNG/JPEG decoder builds here: if it
+     does, bit-equal to PIL on the VOC tree's JPEGs and PNGs; if not, the
+     loader's arrays equal PIL's under ``auto`` and
+     CUTMIX_SEG_NATIVE_DECODE=1 raises;
+  12. the kernel summary line and, last, the device line.
 
 Imports nothing of JAX: it runs where only PyTorch and the CUDA toolkit are.
 ``python3 chip_smoke.py --rank-of <kind> <dir> ...`` is a rank process of
-phase 7 or 8, started by the script itself.
+phase 7, 8 or 11a, started by the script itself.
 """
 
 from __future__ import annotations
@@ -1658,7 +1673,9 @@ def phase_ddp_trainer(voc_root: str, trainer_ms: float) -> dict:
 
 class _GlobalHostMasks(_HostMasks):
     """Dropout keep masks by call order for the global batch (call k from
-    seed 500 + k), each rank taking its rows."""
+    seed 500 + k), each rank taking its data index's rows (under spatial
+    partitioning the port asks for the full maps' masks and keeps its
+    rows)."""
 
     def __init__(self, mesh):
         super().__init__()
@@ -1666,7 +1683,7 @@ class _GlobalHostMasks(_HostMasks):
 
     def draw(self, drop: Dropout, x: torch.Tensor) -> torch.Tensor:
         n, c, h, w = x.shape
-        rows = n * (1 if self.mesh is None else self.mesh.size)
+        rows = n * (1 if self.mesh is None else self.mesh.n_data)
         keep = np.random.RandomState(500 + self.k).rand(rows, h, w, c) < 1.0 - drop.rate
         self.k += 1
         return torch.from_numpy(local_rows(keep, self.mesh)).to(x.device).permute(0, 3, 1, 2)
@@ -1787,13 +1804,26 @@ def phase_multi_seed(voc_root: str, trainer_ms: float) -> dict:
     return {"launches": launches, "ms_per_iter": ms, "peak_mem_gib": peak, "aggregate": agg[0]}
 
 
-# phase 8: spatial partitioning. 8a: name -> ((global n, h, w), config); 36
-# rows give feature maps of 18, 10 and 5 rows (5/5 and 3/2 over the two
-# ranks: the ASPP's dilation 6 reaches past the neighbouring rank)
+# phase 8: spatial partitioning. 8a: name -> (TINY_ALGOS' draws, module,
+# (global n, h, w), config, step factory); 36 rows give DeepLab v2 feature
+# maps of 18, 10 and 5 rows (5/5 and 3/2 over the two ranks: the ASPP's
+# dilation 6 reaches past the neighbouring rank), and DeepLab v3+ maps of
+# 18, 9 and 5 (its image pooling, half-pixel resizes and dropout masks of
+# the full maps; the masks drawn on the host, the same in both runs)
 SPATIAL_CASES = {
-    "deeplab2 cutmix": ((2, 36, 33), MaskConsistencyConfig(conf_thresh=0.34)),
-    "deeplab2 cutout per-pixel gate": ((2, 36, 33), MaskConsistencyConfig(
-        mask_mode="zero", conf_thresh=0.34, conf_per_pixel=True)),
+    "deeplab2 cutmix": ("mask_mt", _tiny_deeplab2, (2, 36, 33),
+                        MaskConsistencyConfig(conf_thresh=0.34), make_mask_mt_step),
+    "deeplab2 cutout per-pixel gate": ("mask_mt", _tiny_deeplab2, (2, 36, 33),
+                                       MaskConsistencyConfig(mask_mode="zero", conf_thresh=0.34,
+                                                             conf_per_pixel=True),
+                                       make_mask_mt_step),
+    "deeplab2 ict": ("ict", _tiny_deeplab2, (2, 36, 33), TINY_ALGOS["ict"][0], make_ict_step),
+    "deeplab2 vat adaptive radius": ("vat_adaptive", _tiny_deeplab2, (2, 36, 33),
+                                     TINY_ALGOS["vat_adaptive"][0], make_vat_step),
+    "deeplab2 aug_mt": ("aug_mt", _tiny_deeplab2, (2, 36, 33), TINY_ALGOS["aug_mt"][0],
+                        make_aug_cons_step),
+    "deeplabv3plus cutmix": ("mask_mt", lambda: DeepLabV3Plus(4, layers=TINY), (4, 36, 33),
+                             MaskConsistencyConfig(conf_thresh=0.0), make_mask_mt_step),
 }
 SPATIAL_STEPS = 2
 # 8b: the Cityscapes CutMix line, 2 epochs of SPATIAL_ITERS iterations (the
@@ -1807,16 +1837,23 @@ def _spatial_case(name: str, mesh) -> tuple:
     """An 8a case on cuda:0: over ``mesh`` (each rank its rows of the
     images) or, with None, the whole batch in one process: _run_tiny's
     (metrics, tensors)."""
-    (n, h, w), cfg = SPATIAL_CASES[name]
+    algo, make_module, (n, h, w), cfg, make_step = SPATIAL_CASES[name]
     rng = np.random.RandomState(9)
-    nb = _tiny_batch("mask_mt", n, h, w, rng)
-    if cfg.mask_mode == "zero":
+    nb = _tiny_batch(algo, n, h, w, rng)
+    if algo == "mask_mt" and cfg.mask_mode == "zero":
         nb = {"sup_x": nb["sup_x"], "sup_y": nb["sup_y"], "ux_tea": nb["ux0_tea"],
               "ux_stu": nb["ux0_stu"], "um": nb["um0"]}
-    draws = [_tiny_draws("mask_mt", n, h, w, rng) for _ in range(SPATIAL_STEPS)]
+    draws = [_tiny_draws(algo, n, h, w, rng) for _ in range(SPATIAL_STEPS)]
     local = {k: local_rows(v, mesh) for k, v in nb.items()}
-    make = lambda model, opt, c: make_mask_mt_step(model, opt, c, mesh)  # noqa: E731
-    return _run_tiny("cuda", _tiny_weights(8), _tiny_deeplab2, cfg, make, local, draws)
+    make = lambda model, opt, c: make_step(model, opt, c, mesh)  # noqa: E731
+    masks = _GlobalHostMasks(mesh)
+    draw_keep = Dropout.draw_keep
+    Dropout.draw_keep = lambda self, x: masks.draw(self, x)
+    try:
+        return _run_tiny("cuda", _tiny_weights(8, make_module()), make_module, cfg, make, local,
+                         draws, masks)
+    finally:
+        Dropout.draw_keep = draw_keep
 
 
 def _spatial_steps_rank() -> dict:
@@ -1851,20 +1888,22 @@ def phase_spatial_steps(tmp: str) -> dict:
         if m0 != m1 or not all(torch.equal(a[k], b[k]) for a, b in zip(t0_, t1_) for k in a):
             raise RuntimeError(f"8a {name}: the ranks' states differ")
         one = _spatial_case(name, None)
-        (n, h, w), _ = SPATIAL_CASES[name]
+        _, _, (n, h, w), _, _ = SPATIAL_CASES[name]
         _check_small_run(f"H split over 2 ranks {name}",
                          {"cpu": one, "cuda": ranks[0]["runs"][name]}, n * h * w,
                          SPATIAL_STEPS, 3e-4, labels=("one process", "2 ranks"))
     per_rank = [r["launches"] for r in ranks]
-    n_mix = sum(cfg.mask_mode == "mix" for _, cfg in SPATIAL_CASES.values())
+    n_mix = sum(algo == "mask_mt" and cfg.mask_mode == "mix"
+                for algo, _, _, cfg, _ in SPATIAL_CASES.values())
     if per_rank != [n_mix * SPATIAL_STEPS] * 2:
         raise RuntimeError(f"8a: {per_rank} {KERNEL} launches per rank, expected "
                            f"{n_mix * SPATIAL_STEPS} each")
-    note(f"[spatial] 8a: {sorted(SPATIAL_CASES)} at 2 images of 36x33 (feature maps of 18, 10, "
-         f"5 rows) with the rows split over two gloo ranks on one card: ranks bit-identical "
-         f"after each of {SPATIAL_STEPS} steps, within phase 3's bounds of one process; "
-         f"{per_rank} {KERNEL} launches per rank (one per CutMix step, on the full crops); the "
-         f"ranks took {t_ranks:.1f} s with their start-up")
+    note(f"[spatial] 8a: {sorted(SPATIAL_CASES)} at 36x33 crops (DeepLab v2 feature maps of "
+         f"18, 10, 5 rows; v3+ 18, 9, 5) with the rows split over two gloo ranks on one card: "
+         f"ranks bit-identical after each of {SPATIAL_STEPS} steps, within phase 3's bounds of "
+         f"one process; {per_rank} {KERNEL} launches per rank (one per CutMix step, on the "
+         f"full crops; none on the ICT, VAT, aug_mt and Cutout steps); the ranks took "
+         f"{t_ranks:.1f} s with their start-up")
     return {"launches": sum(per_rank), "ranks_s": t_ranks}
 
 
@@ -1985,45 +2024,239 @@ def phase_spatial_trainer(tmp: str, voc_root: str) -> dict:
         raise RuntimeError("8c: the world-1 engine's setup failed")
     saved = torch.load(os.path.join(results, "spatial_eval.pt"))
     engine.eval_net().load_state_dict(saved["teacher"])
+    ev = _check_split_eval("8c", engine, saved["logits"], [r["preds"] for r in ranks], 19)
+    cms = "equal" if ev["cm_counts_apart"] == 0 else f"{ev['cm_counts_apart']} counts apart"
+    note(f"[spatial] 8c: --eval_spatial at world 2 over {ev['frames']} val frames of "
+         f"{ev['hw']} (bf16): {ev['pixels_differ']} of {ev['pixels']} predicted pixels differ "
+         f"from world 1's, confusion matrices {cms}; the first batch's logits differ by at "
+         f"most {ev['logit_delta']:.4g} (|logits| up to {ev['logit_scale']:.4g}), and each of its {ev['first_flips']} flipped pixels has a "
+         f"top-two margin within 2 x that ({ev['near_ties']} such near ties); eval "
+         f"{ranks[0]['eval_ms']:.1f} / {ranks[1]['eval_ms']:.1f} ms per rank beside "
+         f"{ev['eval_ms_world1']:.1f} ms at world 1 (this call, cuDNN warmed)")
+    del engine
+    torch.cuda.empty_cache()
+    return {"launches": per_rank, "launches_world1": launches1, "ms_per_iter": ms,
+            "ms_per_iter_world1": ms1, "peak_mem_gib": peaks, "peak_mem_gib_world1": peak1,
+            "eval_ms": [r["eval_ms"] for r in ranks], "eval_ms_world1": ev["eval_ms_world1"],
+            "pixels_differ": ev["pixels_differ"], "cm_counts_apart": ev["cm_counts_apart"],
+            "logit_delta": ev["logit_delta"], "ranks_s": t_ranks}
+
+
+def _check_split_eval(tag: str, engine, split_logits: torch.Tensor, rank_preds: list,
+                      classes: int) -> dict:
+    """The val frames' predictions of ``engine``'s eval net at world 1 in
+    this process against the ranks' (``rank_preds``, rows split): the ranks
+    must agree, and every pixel that differs from world 1 must be a near tie
+    of world 1's logits on the first batch (``split_logits``: the split
+    pass's logits there); the confusion matrices may move by no more than
+    the differing pixels explain."""
     _val_predictions(engine, None, False)  # cuDNN's choice for the full frames
     pred1, labels, eval_ms1, logits1 = _val_predictions(engine, None, False)
-    pred2 = ranks[0]["preds"]
-    if not torch.equal(pred2, ranks[1]["preds"]) or pred2.shape != pred1.shape:
-        raise RuntimeError("8c: the ranks' gathered predictions differ")
-    cm1, cm2 = (confusion_matrix(p, labels, 19) for p in (pred1, pred2))
+    pred2 = rank_preds[0]
+    if any(not torch.equal(pred2, p) for p in rank_preds[1:]) or pred2.shape != pred1.shape:
+        raise RuntimeError(f"{tag}: the ranks' gathered predictions differ")
+    cm1, cm2 = (confusion_matrix(p, labels, classes) for p in (pred1, pred2))
     differ = pred1 != pred2
     moved = int((cm1 - cm2).abs().sum())
     if moved > 2 * int(differ.sum()):
-        raise RuntimeError(f"8c: the matrices differ by {moved} counts, more than the "
+        raise RuntimeError(f"{tag}: the matrices differ by {moved} counts, more than the "
                            f"{int(differ.sum())} differing pixels explain")
     # a pixel's prediction can flip between the two passes only where world
     # 1's top-two logit margin is within twice their largest logit difference
     # (measured on the first batch, whose logits both passes kept)
     n0 = logits1.shape[0]
-    delta = (saved["logits"] - logits1).abs().max().item()
+    delta = (split_logits - logits1).abs().max().item()
     top2 = logits1.topk(2, dim=-1).values
     near_tie = (top2[..., 0] - top2[..., 1]) <= 2 * delta
     unexplained = int((differ[:n0] & ~near_tie).sum())
     if unexplained:
-        raise RuntimeError(f"8c: {unexplained} pixels of the first batch flipped with a "
+        raise RuntimeError(f"{tag}: {unexplained} pixels of the first batch flipped with a "
                            f"top-two margin above 2 x {delta:.3g}")
-    scale = logits1.abs().max().item()
-    note(f"[spatial] 8c: --eval_spatial at world 2 over {pred1.shape[0]} val frames of "
-         f"{tuple(pred1.shape[1:])} (bf16): {int(differ.sum())} of {pred1.numel()} predicted "
-         f"pixels differ from world 1's, confusion matrices "
-         f"{'equal' if moved == 0 else f'{moved} counts apart'}; the first batch's logits "
-         f"differ by at most {delta:.4g} (|logits| up to {scale:.4g}), and each of its "
-         f"{int(differ[:n0].sum())} flipped pixels has a top-two margin within 2 x that "
-         f"({int(near_tie.sum())} such near ties); eval {ranks[0]['eval_ms']:.1f} / "
-         f"{ranks[1]['eval_ms']:.1f} ms per rank beside {eval_ms1:.1f} ms at world 1 (this "
-         f"call, cuDNN warmed)")
-    del engine
-    torch.cuda.empty_cache()
-    return {"launches": per_rank, "launches_world1": launches1, "ms_per_iter": ms,
-            "ms_per_iter_world1": ms1, "peak_mem_gib": peaks, "peak_mem_gib_world1": peak1,
-            "eval_ms": [r["eval_ms"] for r in ranks], "eval_ms_world1": eval_ms1,
+    return {"frames": pred1.shape[0], "hw": tuple(pred1.shape[1:]), "pixels": pred1.numel(),
             "pixels_differ": int(differ.sum()), "cm_counts_apart": moved,
-            "logit_delta": delta, "ranks_s": t_ranks}
+            "logit_delta": delta, "logit_scale": logits1.abs().max().item(),
+            "first_flips": int(differ[:n0].sum()), "near_ties": int(near_tie.sum()),
+            "eval_ms_world1": eval_ms1}
+
+
+# phase 11a: the other spatial lines at full width on the Cityscapes frames
+# of phase 6d: desc -> (trainer, flags). CutMix on DeepLab v3+ R101 (the
+# v3+ recipe's family; 256 rows split 2 ways, where the Pascal recipe's 321
+# do not), and the Pascal recipe's ICT, VAT and aug_mt regularisers
+# (RECIPE_ALGOS) on the Cityscapes line's DeepLab v2 R101; 2 epochs of
+# LINE_ITERS iterations (the first pays cuDNN's choice of algorithms, the
+# second is timed), eval over the val frames at the end of each
+LINE_ITERS = 2
+CITY_BASE = [f for f in CITYSCAPES_CUTMIX
+             if not f.startswith(("--mask_mode", "--mask_prop_range", "--iters_per_epoch",
+                                  "--num_epochs", "--cons_weight", "--conf_thresh"))] + [
+    f"--iters_per_epoch={LINE_ITERS}", "--num_epochs=2"]
+SPATIAL_LINES = {
+    "v3plus_cutmix": ("mask_mt", [f for f in CITY_BASE if not f.startswith("--arch")] + [
+        "--arch=resnet101_deeplabv3plus_imagenet", "--cons_weight=1.0", "--mask_mode=mix",
+        "--mask_prop_range=0.5", "--conf_thresh=0.97"]),
+    **{algo: (algo, CITY_BASE + RECIPE_ALGOS[algo][2]) for algo in ("ict", "vat_mt", "aug_mt")},
+}
+
+
+def _spatial_lines_rank(results: str) -> dict:
+    """One rank of 11a: each of SPATIAL_LINES with --spatial_train 2
+    --eval_spatial through job.submit over two gloo ranks sharing the card;
+    after each, the val frames' predictions with the rows split (rank 0
+    saves the line's teacher and its split first-batch logits)."""
+    maybe_initialize_distributed("cuda:0", backend="gloo")
+    try:
+        rank, out = dist.get_rank(), {}
+        for desc, (algo, flags) in SPATIAL_LINES.items():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            engine, launches, log = _run_trainer(
+                results, flags + ["--spatial_train=2", "--eval_spatial"], "cuda:0", algo,
+                desc=f"{desc}_spatial")
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            mesh, split = common.eval_layout(engine.mesh, True)
+            dist.barrier()  # rank 0 has written its checkpoint
+            preds, _, eval_ms, logits = _val_predictions(engine, mesh, split)
+            out[desc] = {"launches": launches, "peak_mem_gib": peak, "eval_ms": eval_ms,
+                         "mesh": tuple(engine.mesh), "step": engine.state.step,
+                         "losses": _epoch_line(log, 2), "run_dir": engine.ctx.run_dir,
+                         "preds": preds}
+            if rank == 0:
+                torch.save({"teacher": engine.eval_net().state_dict(), "logits": logits},
+                           os.path.join(results, f"{desc}_eval.pt"))
+            del engine
+        return {"lines": out, "backend": dist.get_backend()}
+    finally:
+        dist.destroy_process_group()
+
+
+def _epoch2_ms(run_dir: str, desc: str) -> float:
+    with open(os.path.join(run_dir, f"metrics_{desc}.jsonl")) as f:
+        return json.loads(f.readlines()[-1])["train_time"] / LINE_ITERS * 1e3
+
+
+def phase_spatial_lines(tmp: str, voc_root: str) -> dict:
+    """11a: SPATIAL_LINES at full width (bf16, bs 4, 256x512 crops, 19
+    classes) at world 1 in this process, then with --spatial_train 2
+    --eval_spatial over two gloo ranks sharing the card; per line the
+    epoch lines, ms/iteration, each rank's peak, the kernel's launches per
+    rank (one per iteration on the CutMix line, none on the others) and the
+    split eval's differing val pixels against world 1 (each a near tie)."""
+    os.environ["CUTMIX_SEG_CONFIG"] = write_config(
+        os.path.join(tmp, "seg_lines.cfg"), voc_root,
+        cityscapes_zip=os.path.join(tmp, "cityscapes.zip"))
+    settings._config = None
+    results = os.path.join(tmp, "results_lines")
+    os.makedirs(results, exist_ok=True)
+    world1 = {}
+    for desc, (algo, flags) in SPATIAL_LINES.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        engine, launches, log = _run_trainer(results, flags, None, algo, desc=desc)
+        world1[desc] = {"engine": engine, "launches": launches, "losses": _epoch_line(log, 2),
+                        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                        "ms_per_iter": _epoch2_ms(engine.ctx.run_dir, desc)}
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks("spatial_lines", 2, results, 900)
+    t_ranks = time.perf_counter() - t0
+    if any(r["backend"] != "gloo" for r in ranks):
+        raise RuntimeError("11a: the ranks did not run over gloo")
+    n = 2 * LINE_ITERS
+    out = {"ranks_s": t_ranks}
+    for desc, (algo, _) in SPATIAL_LINES.items():
+        w1 = world1.pop(desc)
+        got = [r["lines"][desc] for r in ranks]
+        if any(g["mesh"] != (2, i, 2) or g["step"] != n for i, g in enumerate(got)):
+            raise RuntimeError(f"11a {desc}: the ranks did not run {n} steps as two ranks of "
+                               "one image")
+        want = n if algo == "mask_mt" else 0
+        per_rank = [g["launches"] for g in got]
+        if per_rank != [want] * 2 or w1["launches"] != want:
+            raise RuntimeError(f"11a {desc}: {per_rank} {KERNEL} launches per rank and "
+                               f"{w1['launches']} at world 1, expected {want} each")
+        saved = torch.load(os.path.join(results, f"{desc}_eval.pt"))
+        engine = w1.pop("engine")
+        engine.eval_net().load_state_dict(saved["teacher"])
+        ev = _check_split_eval(f"11a {desc}", engine, saved["logits"],
+                               [g["preds"] for g in got], 19)
+        del engine
+        ms = _epoch2_ms(got[0]["run_dir"], f"{desc}_spatial")
+        peaks = [g["peak_mem_gib"] for g in got]
+        note(f"[spatial lines] 11a {desc} ({algo}, --spatial_train 2 --eval_spatial, two gloo "
+             f"ranks on one card): epoch 2 {got[0]['losses']}; {ms:.2f} ms/iteration; peak per "
+             f"rank {peaks[0]:.2f} / {peaks[1]:.2f} GiB; {per_rank} {KERNEL} launches per rank "
+             f"in {n} iterations; split eval: {ev['pixels_differ']} of {ev['pixels']} val pixels "
+             f"differ from world 1's, each of the first batch's {ev['first_flips']} a near tie "
+             f"(logits within {ev['logit_delta']:.4g}). World 1: epoch 2 {w1['losses']}; "
+             f"{w1['ms_per_iter']:.2f} ms/iteration; peak {w1['peak_mem_gib']:.2f} GiB; "
+             f"{w1['launches']} launches")
+        out[desc] = {"launches": per_rank, "launches_world1": w1["launches"],
+                     "ms_per_iter": ms, "ms_per_iter_world1": w1["ms_per_iter"],
+                     "peak_mem_gib": peaks, "peak_mem_gib_world1": w1["peak_mem_gib"],
+                     "pixels_differ": ev["pixels_differ"], "pixels": ev["pixels"],
+                     "logit_delta": ev["logit_delta"],
+                     "eval_ms": [g["eval_ms"] for g in got],
+                     "eval_ms_world1": ev["eval_ms_world1"]}
+        torch.cuda.empty_cache()
+    note(f"[spatial lines] 11a: the ranks took {t_ranks:.1f} s with their start-up")
+    return out
+
+
+def phase_native_decoder(voc_root: str) -> dict:
+    """11b: whether the native PNG/JPEG decoder builds on this machine. If
+    it does, it must be bit-equal to PIL on the VOC tree's JPEG images and
+    PNG labels; if not, ``auto`` must give the loader PIL's arrays and
+    ``CUTMIX_SEG_NATIVE_DECODE=1`` must raise."""
+    from PIL import Image
+
+    from cutmix_seg_tpu_torch.data import sources
+    from cutmix_seg_tpu_torch.native import decode as nd
+
+    def first(sub, n=8):
+        d = os.path.join(voc_root, sub)
+        return [os.path.join(d, f) for f in sorted(os.listdir(d))[:n]]
+
+    files = first("JPEGImages") + first("SegmentationClass")
+    t0 = time.perf_counter()
+    built = nd.native_available()
+    build_s = time.perf_counter() - t0
+
+    def pil(path):
+        with Image.open(path) as im:
+            return np.array(im)
+
+    for path in files:
+        with open(path, "rb") as f:
+            data = f.read()
+        got, want = sources._read_file_array(path), pil(path)
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            raise RuntimeError(f"11b: the loader's array of {path} differs from PIL's")
+        if built and (nd._decode_native(data) is None
+                      or not np.array_equal(nd._decode_native(data), want)):
+            raise RuntimeError(f"11b: the native decode of {path} is not PIL's")
+    kinds = sorted({os.path.splitext(p)[1] for p in files})
+    if built:
+        note(f"[native] 11b: the decoder built in {build_s:.2f} s ({nd.library_path()}); "
+             f"bit-equal to PIL on {len(files)} files of the VOC tree ({kinds})")
+        return {"built": True, "files": len(files), "build_s": build_s}
+    err, raised = nd.build_error(), None
+    os.environ["CUTMIX_SEG_NATIVE_DECODE"] = "1"
+    nd._lib, nd._lib_failed, nd._lib_error = None, False, None
+    try:
+        with open(files[0], "rb") as f:
+            nd.decode_array(f.read())
+    except Exception as e:  # the build's own error, as JAX's decoder raises it
+        raised = type(e).__name__
+    finally:
+        del os.environ["CUTMIX_SEG_NATIVE_DECODE"]
+        nd._lib, nd._lib_failed, nd._lib_error = None, False, None
+    if raised is None:
+        raise RuntimeError("11b: CUTMIX_SEG_NATIVE_DECODE=1 did not raise")
+    why = str(getattr(err, "stderr", "") or err).strip().splitlines()[:1]
+    note(f"[native] 11b: the decoder does not build here ({type(err).__name__}: {why}); "
+         f"auto: the loader's arrays of {len(files)} files of the VOC tree ({kinds}) equal "
+         f"PIL's; CUTMIX_SEG_NATIVE_DECODE=1 raised {raised}")
+    return {"built": False, "files": len(files), "mode_1_raised": raised}
 
 
 # phase 9: serving, the model tools and toy2d
@@ -2836,12 +3069,13 @@ def phase_patch_study(tmp: str, voc_root: str) -> dict:
 
 def rank_main(argv) -> int:
     """A rank process of phase 7a (two cards; ``out_dir`` is the results
-    root), 7b, 8a or 8b."""
+    root), 7b, 8a, 8b or 11a."""
     kind, out_dir = argv
     rank = int(os.environ["RANK"])
     run = {"ddp_trainer": lambda: _ddp_trainer_rank(out_dir), "ddp_steps": _ddp_steps_rank,
            "spatial_steps": _spatial_steps_rank,
-           "spatial_trainer": lambda: _spatial_trainer_rank(out_dir)}[kind]
+           "spatial_trainer": lambda: _spatial_trainer_rank(out_dir),
+           "spatial_lines": lambda: _spatial_lines_rank(out_dir)}[kind]
     torch.save(run(), os.path.join(out_dir, f"{kind}_{rank}.pt"))
     return 0
 
@@ -2920,6 +3154,11 @@ def main() -> int:
         sweep = phase_sweep(tmp)
         patch_study = phase_patch_study(tmp, voc_root)
         note(f"[phase 10] {time.perf_counter() - t10:.1f} s")
+        torch.cuda.empty_cache()
+        t11 = time.perf_counter()
+        lines = phase_spatial_lines(tmp, voc_root)
+        native = phase_native_decoder(voc_root)
+        note(f"[phase 11] {time.perf_counter() - t11:.1f} s")
     kernels = [{
         "name": KERNEL, "route": "cuda",
         "source": "cutmix_seg_tpu_torch/csrc/cutmix_blend.cu",
@@ -2966,7 +3205,13 @@ def main() -> int:
                              **{f"sweep {arm} arm, {SWEEP_SEEDS} seeds x {SWEEP_ITERS} "
                                 f"iterations (phase 10a)": r["launches"]
                                 for arm, r in sweep["per_arm"].items()},
-                             "patch-distance study (phase 10b)": patch_study["launches"]},
+                             "patch-distance study (phase 10b)": patch_study["launches"],
+                             **{f"trainer Cityscapes {d} --spatial_train 2, rank {r} "
+                                f"(phase 11a)": x["launches"][r]
+                                for d, x in lines.items() if d != "ranks_s" for r in (0, 1)},
+                             **{f"trainer Cityscapes {d} world 1 (phase 11a)":
+                                x["launches_world1"]
+                                for d, x in lines.items() if d != "ranks_s"}},
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
         "kernel_us": k["ms"] * 1e3, "plain_us": k["plain_ms"] * 1e3,

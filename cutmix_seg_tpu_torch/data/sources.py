@@ -1,5 +1,5 @@
 """Dataset sources: Pascal VOC (+SBD aug), Cityscapes, CamVid, ISIC-2017
-(a copy of cutmix_seg_tpu.data.sources that decodes and encodes with PIL).
+(a copy of cutmix_seg_tpu.data.sources).
 
 Re-derivation of the reference's datapipe sources
 (reference: datapipe/pascal_voc_dataset.py, cityscapes_dataset.py,
@@ -16,13 +16,14 @@ Differences from the reference by design:
   * zip files are opened per-thread (the reference reopens per worker
     process; seg_data.py:127-153) since our decode pool is threaded.
 
-The JAX package decodes with its own C++ decoder, which returns exactly
-``np.array(PIL.Image.open(data))``; here PIL does it directly.
+Images and labels decode, and predictions encode, through the port's copy
+of the native C++ decoder (``native.decode``), which returns exactly
+``np.array(PIL.Image.open(data))`` and falls back to PIL where it does not
+build.
 """
 
 from __future__ import annotations
 
-import io
 import os
 import pickle
 import threading
@@ -31,34 +32,8 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from PIL import Image
-
 from cutmix_seg_tpu_torch.data import settings
-
-
-def decode_array(data: bytes) -> np.ndarray:
-    """PNG/JPEG bytes -> ``np.array(Image.open(...))``: palette PNGs yield
-    raw indices (H, W), the contract the label pipeline relies on."""
-    img = Image.open(io.BytesIO(data))
-    img.load()
-    return np.array(img)
-
-
-def encode_png(arr: np.ndarray) -> bytes:
-    """A label map or image as PNG bytes. Integer label maps wider than 16
-    bits are narrowed to uint16, as PIL stores mode-I arrays (PNG has no
-    32-bit depth)."""
-    if arr.dtype in (np.uint32, np.int32, np.int64):
-        if arr.ndim == 2 and arr.size > 0 and arr.min() >= 0 and arr.max() < 65536:
-            arr = arr.astype(np.uint16)
-        else:
-            raise ValueError(
-                f"encode_png: cannot narrow {arr.dtype} array of shape "
-                f"{arr.shape} to uint16 (need 2-D, non-empty, values in "
-                f"[0, 65536)); convert explicitly before encoding")
-    buf = io.BytesIO()
-    Image.fromarray(arr).save(buf, "PNG")
-    return buf.getvalue()
+from cutmix_seg_tpu_torch.native.decode import decode_array, encode_png
 
 
 def _holdout_split(train_ndx, val_ndx, n_val, val_rng, trainval_perm):

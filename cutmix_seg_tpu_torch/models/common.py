@@ -27,6 +27,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.nn import functional as F
 
@@ -34,6 +35,7 @@ from cutmix_seg_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
 from cutmix_seg_tpu_torch.parallel.spatial import (
     SpatialRows,
     interp_matrix_align_corners,
+    interp_matrix_half_pixel,
     split_rows,
 )
 
@@ -112,7 +114,10 @@ class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         weight = self.weight.to(x.dtype)
-        if self.spatial is not None:
+        # a 1x1 conv of stride 1 reads only its own rows (also on the 1-row
+        # map of DeepLab v3's image pooling): it convolves them as they are
+        row_local = self.kernel_size[0] == 1 and self.stride[0] == 1 and self.padding[0] == 0
+        if self.spatial is not None and not row_local:
             return self._forward_rows(x, weight, bias, self.spatial)
         return F.conv2d(x, weight, bias, self.stride,
                         self.padding, self.dilation, self.groups)
@@ -216,12 +221,15 @@ class Dropout(nn.Module):
     """flax's Dropout: in train mode ``where(keep, x / keep_prob, 0)`` in x's
     dtype (keep_prob rounded to that dtype, as JAX's weak typing does), the
     keep mask drawn by ``draw_keep`` with ``bernoulli_`` from the generator
-    that ``set_dropout_generator`` gave the module."""
+    that ``set_dropout_generator`` gave the module. Under ``set_spatial``
+    the mask is the full map's (its global height traced, in either mode),
+    of which this rank keeps its rows."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
+        self.spatial: Optional[SpatialRows] = None  # set_spatial: this rank's rows of the mask
 
     def draw_keep(self, x: torch.Tensor) -> torch.Tensor:
         """Boolean keep mask of x's shape (and memory format)."""
@@ -232,10 +240,29 @@ class Dropout(nn.Module):
             1.0 - self.rate, generator=self.generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        rows = None
+        if self.spatial is not None:  # x holds this rank's rows (NCHW)
+            if self.spatial.tracing:
+                self.spatial.record(x.shape[2], x.shape[2])
+                return x
+            h, _ = self.spatial.next_op(x.shape[2])
+            rows = self.spatial.own(h) + (h,)
         if not self.training or self.rate == 0.0:
             return x
         keep_prob = torch.tensor(1.0 - self.rate, dtype=x.dtype).item()
-        return torch.where(self.draw_keep(x), x / keep_prob, 0.0)
+        if rows is None:
+            keep = self.draw_keep(x)
+        else:
+            # the mask of the full map, in x's memory format (the element
+            # order of the draw), drawn alike by the model ranks of an image
+            # (one generator per data index), cut to this rank's rows
+            lo, hi, h = rows
+            n, c, _, w = x.shape
+            fmt = (torch.channels_last if x.is_contiguous(memory_format=torch.channels_last)
+                   else torch.contiguous_format)
+            full = torch.empty((n, c, h, w), dtype=x.dtype, device=x.device, memory_format=fmt)
+            keep = self.draw_keep(full)[:, :, lo:hi]
+        return torch.where(keep, x / keep_prob, 0.0)
 
 
 def set_freeze_bn(module: nn.Module, freeze: bool) -> None:
@@ -325,11 +352,68 @@ def max_pool_ceil(x: torch.Tensor, window: int, stride: int,
         if spatial is not None:
             spatial.record(h, y.shape[2])
         return y.permute(0, 2, 3, 1)
-    win = spatial.window(xc, h_in, [(lo * stride - padding, (hi - 1) * stride - padding + window)
-                                    for lo, hi in split_rows(h_out, spatial.ways)],
+    win = spatial.window(xc, h_in, _pool_windows(h_out, spatial.ways, window, stride, padding),
                          float("-inf"))
     y = F.max_pool2d(win, window, stride, (0, padding), ceil_mode=True)
     return y.permute(0, 2, 3, 1)
+
+
+def _pool_windows(h_out: int, ways: int, window: int, stride: int, padding: int):
+    """Each model index's input rows [a, b) for its output rows of a pool."""
+    return [(lo * stride - padding, (hi - 1) * stride - padding + window)
+            for lo, hi in split_rows(h_out, ways)]
+
+
+def max_pool_floor(x: torch.Tensor, window: int, stride: int, padding: int,
+                   spatial: Optional[SpatialRows] = None) -> torch.Tensor:
+    """Max pool with floor-mode output size, -inf padding (NCHW in and out):
+    ``F.max_pool2d(x, window, stride, padding)``, flax's ``nn.max_pool``
+    with explicit padding (the torchvision ResNet stem).
+
+    With ``spatial`` (x: this rank's rows), the rows of this rank's output
+    windows come through the row exchange, -inf outside the image."""
+    if spatial is None or spatial.tracing:
+        y = F.max_pool2d(x, window, stride, padding)
+        if spatial is not None:
+            spatial.record(x.shape[2], y.shape[2])
+        return y
+    h_in, h_out = spatial.next_op(x.shape[2])
+    win = spatial.window(x, h_in, _pool_windows(h_out, spatial.ways, window, stride, padding),
+                         float("-inf"))
+    return F.max_pool2d(win, window, stride, (0, padding))
+
+
+class _RowsMean(torch.autograd.Function):
+    """``apply(x, count, group)``: the mean over H and W (keepdim) of an
+    NCHW map whose rows the ranks of ``group`` share, from float32 row sums
+    summed over the group. Each rank's pooled value feeds only its own rows
+    downstream, so the backward sums the pooled gradient over the group
+    before spreading it over this rank's pixels."""
+
+    @staticmethod
+    def forward(ctx, x, count, group):
+        sums = x.float().sum(dim=(2, 3), keepdim=True)
+        dist.all_reduce(sums, group=group)
+        ctx.x_shape, ctx.count, ctx.group = x.shape, count, group
+        return (sums / count).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.to(torch.float32, copy=True)
+        dist.all_reduce(g, group=ctx.group)
+        return (g / ctx.count).to(grad.dtype).expand(ctx.x_shape), None, None
+
+
+def mean_hw(x: torch.Tensor, spatial: Optional[SpatialRows] = None) -> torch.Tensor:
+    """The mean over H and W of an NCHW map, keepdim (DeepLab v3's image
+    pooling). With ``spatial`` (x: this rank's rows) the row sums are
+    summed over the model group and divided by the traced global H x W."""
+    if spatial is None or spatial.tracing:
+        if spatial is not None:
+            spatial.record(x.shape[2], x.shape[2])
+        return x.mean(dim=(2, 3), keepdim=True)
+    h, _ = spatial.next_op(x.shape[2])
+    return _RowsMean.apply(x, h * x.shape[3], spatial.group)
 
 
 def upsample_bilinear_align_corners(x: torch.Tensor, out_hw: Tuple[int, int],
@@ -353,19 +437,29 @@ def upsample_bilinear_align_corners(x: torch.Tensor, out_hw: Tuple[int, int],
     h_in, h_out = spatial.next_op(x.shape[1])
     if (h_in, x.shape[2]) == (h_out, out_hw[1]):
         return x
-    windows, wys = _align_corners_rows(h_in, h_out, spatial.ways)
-    win = spatial.window(x.permute(0, 3, 1, 2), h_in, windows, 0.0)
+    y = _resize_rows(x.permute(0, 3, 1, 2), h_in, h_out, out_hw[1], spatial,
+                     interp_matrix_align_corners)
+    return y.permute(0, 2, 3, 1)
+
+
+def _resize_rows(x: torch.Tensor, h_in: int, h_out: int, w_out: int, spatial: SpatialRows,
+                 matrix) -> torch.Tensor:
+    """This rank's output rows (NCHW) of a separable resize whose (n_out,
+    n_in) weights ``matrix`` gives: a product with this rank's rows of the
+    H matrix (the source rows through the row exchange), then one with the
+    W matrix, each in x's dtype (a lower dtype accumulates in float32)."""
+    windows, wys = _matrix_rows(matrix, h_in, h_out, spatial.ways)
+    win = spatial.window(x, h_in, windows, 0.0)
     wy = wys[spatial.index].to(device=x.device, dtype=x.dtype)
-    wx = torch.from_numpy(interp_matrix_align_corners(x.shape[2], out_hw[1])).to(
-        device=x.device, dtype=x.dtype)
-    return torch.einsum("pw,ncow->nopc", wx, torch.einsum("oh,nchw->ncow", wy, win))
+    wx = torch.from_numpy(matrix(x.shape[3], w_out)).to(device=x.device, dtype=x.dtype)
+    return torch.einsum("pw,ncow->ncop", wx, torch.einsum("oh,nchw->ncow", wy, win))
 
 
 @functools.lru_cache(maxsize=None)
-def _align_corners_rows(h_in: int, h_out: int, ways: int):
+def _matrix_rows(matrix, h_in: int, h_out: int, ways: int):
     """Each model index's window of source rows [a, b) and its rows of the
     (h_out, h_in) interpolation matrix restricted to them."""
-    mat = torch.from_numpy(interp_matrix_align_corners(h_in, h_out))
+    mat = torch.from_numpy(matrix(h_in, h_out))
     windows, rows = [], []
     for lo, hi in split_rows(h_out, ways):
         used = mat[lo:hi].sum(dim=0).nonzero()[:, 0]
@@ -380,14 +474,28 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     return F.interpolate(x, scale_factor=2.0, mode="nearest")
 
 
-def resize_bilinear_half_pixel(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+def resize_bilinear_half_pixel(x: torch.Tensor, out_hw: Tuple[int, int],
+                               spatial: Optional[SpatialRows] = None) -> torch.Tensor:
     """Bilinear resize with half-pixel centres (align_corners=False, no
     antialiasing; NCHW): ``jax.image.resize(method='linear',
     antialias=False)``, whose edge samples renormalise onto the edge pixel
-    as torch's clamped source index does."""
-    if tuple(x.shape[2:]) == tuple(out_hw):
+    as torch's clamped source index does.
+
+    With ``spatial`` (x: this rank's rows; ``out_hw``'s height is replaced
+    by the traced global one), this rank's output rows are the products
+    with its rows of ``interp_matrix_half_pixel``: each reads the two
+    clamped source rows around (y + 0.5) * h_in / h_out - 0.5."""
+    if spatial is None or spatial.tracing:
+        y = x
+        if tuple(x.shape[2:]) != tuple(out_hw):
+            y = F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=False)
+        if spatial is not None:
+            spatial.record(x.shape[2], y.shape[2])
+        return y
+    h_in, h_out = spatial.next_op(x.shape[2])
+    if (h_in, x.shape[3]) == (h_out, out_hw[1]):
         return x
-    return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=False)
+    return _resize_rows(x, h_in, h_out, out_hw[1], spatial, interp_matrix_half_pixel)
 
 
 class AddSkipDecoderBlock(nn.Module):

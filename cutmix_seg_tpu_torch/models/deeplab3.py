@@ -11,6 +11,11 @@
 
 Head convs take He-normal init; the backbone's N(0, 0.01). No BN affine is
 frozen, not even under --freeze_bn: only the running statistics freeze.
+
+Under ``parallel.spatial.set_spatial`` the image H axis is split over ranks:
+the convs, the stem's floor-mode pool, the image pooling's global mean, the
+dropout mask and the half-pixel resizes take and give this rank's rows, the
+resizes' output heights taken from the trace of the global shapes.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from cutmix_seg_tpu_torch.models.common import (
     Dropout,
     SegModel,
     label_params_by_path,
+    mean_hw,
     resize_bilinear_half_pixel,
 )
 from cutmix_seg_tpu_torch.models.resnet import ResNetBackbone
@@ -58,28 +64,36 @@ class ASPP(nn.Module):
         self.pool = ConvBNReLU(chn_in, features, kernel=1)
         self.project = ConvBNReLU((len(dilations) + 2) * features, features, kernel=1)
         self.dropout = Dropout(0.5)
+        self.spatial = None  # set_spatial: the image pooling's rows over ranks
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         branches = [getattr(self, f"b{i}")(x) for i in range(self.n_dilated + 1)]
-        gap = self.pool(x.mean(dim=(2, 3), keepdim=True))
+        gap = self.pool(mean_hw(x, self.spatial))
         branches.append(gap.expand(-1, -1, *x.shape[2:]))
         return self.dropout(self.project(torch.cat(branches, dim=1)))
 
 
 class _DeepLab3Base(nn.Module):
+    # every cross-row operation has a spatial form (parallel.spatial)
+    supports_spatial = True
+
     def __init__(self, layers: Sequence[int], dtype: Optional[torch.dtype]):
         super().__init__()
         self.dtype = dtype
+        self.spatial = None  # set_spatial: H split over ranks
         self.backbone = ResNetBackbone(layers, strides=(1, 2, 1, 1), dilations=(1, 1, 2, 4),
                                        style="torchvision")
         self.aspp = ASPP(2048)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, H, W, 3) -> (N, H, W, num_classes) logits."""
+        """(N, H, W, 3) -> (N, H, W, num_classes) logits (under
+        ``set_spatial``: this rank's rows of each)."""
+        if self.spatial is not None:
+            self.spatial.begin(self, x)
         in_hw = tuple(x.shape[1:3])
         taps = self.backbone.taps(x.to(self.dtype or x.dtype).permute(0, 3, 1, 2))
         logits = self.classifier(self.head(taps))
-        return resize_bilinear_half_pixel(logits, in_hw).permute(0, 2, 3, 1)
+        return resize_bilinear_half_pixel(logits, in_hw, self.spatial).permute(0, 2, 3, 1)
 
 
 class DeepLabV3Plus(_DeepLab3Base):
@@ -93,7 +107,8 @@ class DeepLabV3Plus(_DeepLab3Base):
 
     def head(self, taps):
         low = self.project(taps["layer1"])
-        y = resize_bilinear_half_pixel(self.aspp(taps["layer4"]), tuple(low.shape[2:]))
+        y = resize_bilinear_half_pixel(self.aspp(taps["layer4"]), tuple(low.shape[2:]),
+                                       self.spatial)
         return self.head1(self.head0(torch.cat([low, y], dim=1)))
 
 

@@ -23,7 +23,12 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from cutmix_seg_tpu_torch.models.common import BatchNorm2d, Conv2d, max_pool_ceil
+from cutmix_seg_tpu_torch.models.common import (
+    BatchNorm2d,
+    Conv2d,
+    max_pool_ceil,
+    max_pool_floor,
+)
 
 
 class Bottleneck(nn.Module):
@@ -94,7 +99,7 @@ class ResNetBackbone(nn.Module):
         out = {"stem_prerelu": self.bn1(self.conv1(x))}
         y = out["stem"] = F.relu(out["stem_prerelu"])
         if self.torchvision_style:
-            y = F.max_pool2d(y, 3, 2, 1)
+            y = max_pool_floor(y, 3, 2, 1, spatial=self.spatial)
         else:
             y = max_pool_ceil(y.permute(0, 2, 3, 1), window=3, stride=2,
                               padding=1, spatial=self.spatial).permute(0, 3, 1, 2)

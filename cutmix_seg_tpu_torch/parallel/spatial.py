@@ -34,9 +34,15 @@ neighbouring rank (ASPP dilation 24 on a 33-row map split 17/16).
 
 Sums over pixels (the CE's valid count, the gate sums, training BN's
 statistics, the gradients) stay all-reduces over the whole world: the ranks
-hold disjoint pixels, so the world's sum is the global one. Only the row
-exchanges, and the eval's gather of predicted rows, run over the model group
-(``model_group``).
+hold disjoint pixels, so the world's sum is the global one. The row
+exchanges, the eval's gather of predicted rows, the sums of a per-image
+reduction (DeepLab v3's image pooling, VAT's per-sample norms) and aug_mt's
+gather of the teacher's logits run over the model group (``model_group``).
+
+A step receives its data index's full crops: per-sample draws and
+reductions over the whole crop (CutMix's blend, ICT's mix, VAT's noise and
+adaptive radius, aug_mt's warp of the valid mask) run on them, and then
+``slice_batch_h`` keeps this rank's rows of the image-shaped inputs.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ __all__ = [
     "pad_batch_h",
     "local_h_rows",
     "slice_h",
+    "slice_batch_h",
     "gather_h",
     "model_group",
     "RowWindow",
@@ -127,6 +134,13 @@ def slice_h(x, mesh: Mesh):
     (N, H, W, 1) masks)."""
     lo, hi = local_h_rows(x.shape[1], mesh)
     return x[:, lo:hi]
+
+
+def slice_batch_h(batch: dict, mesh: Mesh, per_sample=()) -> dict:
+    """This rank's rows of every image-shaped leaf of a step's batch; the
+    leaves named in ``per_sample`` (mix factors, radii, pair matrices, and
+    masks the step still reads whole) are kept as they are."""
+    return {k: v if k in per_sample else slice_h(v, mesh) for k, v in batch.items()}
 
 
 def gather_h(x_local: torch.Tensor, h: int, mesh: Mesh) -> torch.Tensor:
@@ -345,18 +359,18 @@ def rows_for(mesh: Mesh) -> SpatialRows:
 
 def check_supported(module: torch.nn.Module) -> None:
     """Raise, naming ROADMAP A6c, for a network without the spatial forms
-    of all its cross-row operations (all but DeepLab v2)."""
+    of all its cross-row operations (all but DeepLab v2 and v3/v3+)."""
     if not getattr(module, "supports_spatial", False):
         raise NotImplementedError(
             f"not ported yet: spatial partitioning of {type(module).__name__} (only "
-            f"DeepLab v2 has the spatial forms of its operations) is {A6C}")
+            f"DeepLab v2 and v3/v3+ have the spatial forms of their operations) is {A6C}")
 
 
 def set_spatial(module: torch.nn.Module, mesh: Optional[Mesh]) -> None:
     """Split the H axis of ``module``'s forward over ``mesh``'s model group
     (None, or a mesh of one model rank: the plain forward). Only networks
-    whose every cross-row operation has a spatial form take it (DeepLab
-    v2); another raises naming ROADMAP A6c."""
+    whose every cross-row operation has a spatial form take it (DeepLab v2,
+    v3 and v3+); another raises naming ROADMAP A6c."""
     rows = rows_for(mesh) if mesh is not None and mesh.n_model > 1 else None
     if rows is not None:
         check_supported(module)
@@ -380,3 +394,19 @@ def interp_matrix_align_corners(n_in: int, n_out: int) -> np.ndarray:
     m[np.arange(n_out), lo] += (1.0 - frac).astype(np.float32)
     m[np.arange(n_out), hi] += frac.astype(np.float32)
     return m
+
+
+def interp_matrix_half_pixel(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) float32 bilinear weights with half-pixel centres and no
+    antialiasing: output i reads the two source pixels around
+    (i + 0.5) * n_in / n_out - 0.5, clamped into the image (torch's
+    align_corners=False; ``jax.image.resize``'s 'linear' renormalises its
+    edge taps onto the edge pixel alike)."""
+    src = np.maximum((np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5, 0.0)
+    lo = np.floor(src).astype(np.int64)
+    hi = np.minimum(lo + 1, n_in - 1)
+    frac = src - lo
+    m = np.zeros((n_out, n_in), dtype=np.float64)
+    np.add.at(m, (np.arange(n_out), lo), 1.0 - frac)
+    np.add.at(m, (np.arange(n_out), hi), frac)
+    return m.astype(np.float32)

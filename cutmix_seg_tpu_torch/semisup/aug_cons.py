@@ -19,7 +19,11 @@ different geometry. One step, in the JAX step's order:
 With ``grad_accum`` K > 1, steps 1-4 run once per strided chunk
 (``stepcore.accumulate``): the pair matrices are chunked with the images.
 Over a ``mesh`` of ranks the losses are global (``stepcore``); the step
-draws nothing.
+draws nothing. With model ranks (``--spatial_train``) the warp reads
+across rows: the teacher runs on this rank's rows of element 0, its
+float32 logits are gathered to the full height over the model group (no
+gradient), warped whole with the full valid mask, and this rank keeps its
+rows of the warped logits, probabilities and mask.
 
 The reference's 'logits_var' branch reuses a stale probability delta and so
 computes 'var' (reference: train_seg_semisup_aug_mt.py:370-374); the JAX
@@ -35,6 +39,7 @@ from torch.nn import functional as F
 
 from cutmix_seg_tpu_torch.core.train_state import TrainState
 from cutmix_seg_tpu_torch.ops.resample import grid_sample_affine
+from cutmix_seg_tpu_torch.parallel.spatial import gather_h, slice_batch_h, slice_h
 from cutmix_seg_tpu_torch.semisup import losses as L
 from cutmix_seg_tpu_torch.semisup.stepcore import (
     ConsistencyCommon,
@@ -69,6 +74,10 @@ def make_aug_cons_step(model, opt, cfg: AugConsConfig, mesh=None):
     if cfg.grad_accum > 1:
         validate_accum(cfg, "aug_mt")
     use_cons = cfg.cons_weight > 0.0
+    spatial = mesh is not None and mesh.n_model > 1
+
+    def rows(x):
+        return slice_h(x, mesh) if spatial else x
 
     def step(state: TrainState, batch, ramp):
         teacher = prepare_nets(cfg, state, mesh)
@@ -76,18 +85,22 @@ def make_aug_cons_step(model, opt, cfg: AugConsConfig, mesh=None):
         if use_cons:
             full.update(ux0=batch["ux0"], ux1=batch["ux1"], um0=batch["um0"].float(),
                         um1=batch["um1"].float(), xf=batch["xf0_to_1"].float())
+        if spatial:
+            full = slice_batch_h(full, mesh, per_sample=("xf", "um0"))
 
         def one_chunk(c):
             x1 = loss_mask = conf_px = per_px_fn = None
             if use_cons:
                 x1 = c["ux1"]
-                hw = tuple(x1.shape[1:3])
+                hw = tuple(c["um0"].shape[1:3])  # the full crop
                 logits_tea = teacher_forward(cfg, teacher, c["ux0"]).float()
                 with torch.no_grad():
+                    if spatial:
+                        logits_tea = gather_h(logits_tea, hw[0], mesh)
                     prob_tea = F.softmax(logits_tea, dim=-1)
-                    logits_tea_in_stu = grid_sample_affine(logits_tea, c["xf"], hw)
-                    prob_tea_in_stu = grid_sample_affine(prob_tea, c["xf"], hw)
-                    um0_in_stu = grid_sample_affine(c["um0"], c["xf"], hw)
+                    logits_tea_in_stu = rows(grid_sample_affine(logits_tea, c["xf"], hw))
+                    prob_tea_in_stu = rows(grid_sample_affine(prob_tea, c["xf"], hw))
+                    um0_in_stu = rows(grid_sample_affine(c["um0"], c["xf"], hw))
                     loss_mask = um0_in_stu * c["um1"]
                     conf_px = confidence_px(cfg, prob_tea_in_stu.amax(dim=-1, keepdim=True))
 

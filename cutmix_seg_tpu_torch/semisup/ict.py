@@ -23,7 +23,10 @@ lambdas do not depend on K) and steps 3-5 once per strided chunk
 (``stepcore.accumulate``).
 
 Over a ``mesh`` of ranks the lambdas are drawn for the global batch and
-each rank keeps its rows; the losses are global (``stepcore``).
+each rank keeps its rows; the losses are global (``stepcore``). With model
+ranks (``--spatial_train``) the batch holds the data index's full crops:
+they are mixed whole, and then every image-shaped input is cut to this
+rank's rows (lambda is per sample and stays whole).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from torch.nn import functional as F
 
 from cutmix_seg_tpu_torch.core.train_state import TrainState
 from cutmix_seg_tpu_torch.parallel.mesh import global_rows, local_rows
+from cutmix_seg_tpu_torch.parallel.spatial import slice_batch_h
 from cutmix_seg_tpu_torch.semisup import losses as L
 from cutmix_seg_tpu_torch.semisup.stepcore import (
     ConsistencyCommon,
@@ -95,6 +99,7 @@ def make_ict_step(model, opt, cfg: ICTConfig, mesh=None):
     if cfg.grad_accum > 1:
         validate_accum(cfg, "ict")
     use_cons = cfg.cons_weight > 0.0
+    spatial = mesh is not None and mesh.n_model > 1
 
     def step(state: TrainState, batch, ramp, lam: Optional[torch.Tensor] = None):
         teacher = prepare_nets(cfg, state, mesh)
@@ -112,6 +117,8 @@ def make_ict_step(model, opt, cfg: ICTConfig, mesh=None):
                     x_mixed=ux0 * (1.0 - lam) + ux1 * lam,
                     um_mixed=(batch["um0"] * (1.0 - lam) + batch["um1"] * lam).float(),
                     lam=lam.float())
+        if spatial:
+            full = slice_batch_h(full, mesh, per_sample=("lam",))
 
         def one_chunk(c):
             conf_px = per_px_fn = None

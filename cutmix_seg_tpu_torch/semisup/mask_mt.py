@@ -50,7 +50,7 @@ from cutmix_seg_tpu_torch.masks.box_mask import (
 )
 from cutmix_seg_tpu_torch.ops.cutmix import cutmix_blend
 from cutmix_seg_tpu_torch.parallel.mesh import global_rows, local_rows
-from cutmix_seg_tpu_torch.parallel.spatial import slice_h
+from cutmix_seg_tpu_torch.parallel.spatial import slice_batch_h
 from cutmix_seg_tpu_torch.semisup import losses as L
 from cutmix_seg_tpu_torch.semisup.stepcore import (
     ConsistencyCommon,
@@ -146,7 +146,7 @@ def make_mask_mt_step(model, opt, cfg: MaskConsistencyConfig, mesh=None):
     tea_keys = ("ux0_tea", "ux1_tea") if cfg.mask_mode == "mix" else ("ux_tea",)
 
     def step(state: TrainState, batch, ramp, rects=None):
-        teacher = prepare_nets(cfg, state, mesh, spatial=True)
+        teacher = prepare_nets(cfg, state, mesh)
         full = {"sup_x": batch["sup_x"], "sup_y": batch["sup_y"]}
         # ---- mixing geometry over the whole batch, outside the gradient ----
         if use_cons:
@@ -161,7 +161,7 @@ def make_mask_mt_step(model, opt, cfg: MaskConsistencyConfig, mesh=None):
             full.update(x_cons=x_stu_cons, m=m, loss_mask=loss_mask.float())
         if spatial:
             # the forwards, the blends and the losses run on this rank's rows
-            full = {k: slice_h(v, mesh) for k, v in full.items()}
+            full = slice_batch_h(full, mesh)
 
         def one_chunk(c):
             # ---- teacher: all outside the gradient ----

@@ -30,13 +30,18 @@ BN statistics are the chunk's. Dropout masks are drawn per rank, from a
 generator folded with the rank and the step.
 
 Spatial partitioning (a mesh with ``n_model`` > 1 ranks to an image,
-``parallel.spatial``; the mask_mt step only): the JAX program is the same
-global one with its activations split on H, so the same global sums hold.
-Rank r holds the rows of model index r % n_model of the images of data
-index r // n_model; the sub-batches count in data indices, a global
-sub-batch's element count is n_model times a rank's rows, and every pixel
-sum (the denominators, BN's statistics, the gradients) stays an all-reduce
-over the whole world, whose ranks hold disjoint pixels.
+``parallel.spatial``): the JAX program is the same global one with its
+activations split on H, so the same global sums hold. A step receives its
+data index's full crops, makes its draws and whole-crop reductions on them
+and cuts every image-shaped input to this rank's rows
+(``parallel.spatial.slice_batch_h``). Rank r holds the rows of model index
+r % n_model of the images of data index r // n_model; the sub-batches count
+in data indices, a global sub-batch's element count is n_model times a
+rank's rows, and every pixel sum (the denominators, BN's statistics, the
+gradients) stays an all-reduce over the whole world, whose ranks hold
+disjoint pixels. The dropout generator is folded by data index (with one
+data index it is the state's, as alone), so the model ranks of an image
+draw the same full-map masks and keep their rows.
 
 BN and dropout follow the JAX steps: every forward but VAT's direction net
 runs in train mode, so dropout draws masks (from the state's generator) in
@@ -65,7 +70,7 @@ from cutmix_seg_tpu_torch.models.common import (
     set_freeze_bn,
 )
 from cutmix_seg_tpu_torch.parallel.mesh import Mesh, all_reduce_grads
-from cutmix_seg_tpu_torch.parallel.spatial import A6C, set_spatial
+from cutmix_seg_tpu_torch.parallel.spatial import set_spatial
 from cutmix_seg_tpu_torch.semisup import losses as L
 from cutmix_seg_tpu_torch.semisup.ema import ema_update, float_tensors
 
@@ -241,21 +246,17 @@ def accum_zero_metrics(use_cons: bool, device=None) -> Dict[str, torch.Tensor]:
 
 
 def prepare_nets(cfg: ConsistencyCommon, state: TrainState,
-                 mesh: Optional[Mesh] = None, spatial: bool = False) -> torch.nn.Module:
+                 mesh: Optional[Mesh] = None) -> torch.nn.Module:
     """Set the BN mode (``cfg.freeze_bn``) and mesh, the dropout generator
-    (the state's; over several ranks, this rank's fold of it) and the
+    (the state's; over several data indices, this data index's fold of it:
+    the model ranks of an image draw alike) and the
     spatial split (``parallel.spatial.set_spatial``: the mesh's model
     ranks split H) of the student and the teacher for a step; returns the
-    teacher net (the student itself in pi-model mode). A step that has no
-    spatial form (``spatial`` False) refuses a mesh with model ranks."""
-    if mesh is not None and mesh.n_model > 1 and not spatial:
-        raise NotImplementedError(
-            f"not ported yet: this algorithm's step over {mesh.n_model} model ranks "
-            f"(--spatial_train) is {A6C}")
+    teacher net (the student itself in pi-model mode)."""
     nets = [state.student] + ([state.teacher] if cfg.mean_teacher else [])
     dropout_gen = state.generator
-    if mesh is not None and mesh.size > 1:
-        dropout_gen = rank_generator(state, mesh.rank)
+    if mesh is not None and mesh.n_data > 1:
+        dropout_gen = rank_generator(state, mesh.data_index)
     for net in nets:
         set_freeze_bn(net, cfg.freeze_bn)
         set_bn_mesh(net, mesh)
@@ -264,11 +265,13 @@ def prepare_nets(cfg: ConsistencyCommon, state: TrainState,
     return nets[-1]
 
 
-def rank_generator(state: TrainState, rank: int) -> torch.Generator:
-    """A generator of this rank's own for a step's dropout masks, seeded
-    from the state generator's seed, the step and the rank: masks differ
-    between ranks and steps, and a resumed run draws the same ones."""
-    seed = ((state.generator.initial_seed() * 1_000_003 + state.step) * 4096 + rank) % (1 << 63)
+def rank_generator(state: TrainState, index: int) -> torch.Generator:
+    """A generator of a data index's own (the rank at ``n_model`` 1) for a
+    step's dropout masks, seeded from the state generator's seed, the step
+    and the index: masks differ between data indices and steps, the model
+    ranks of an image draw the same ones, and a resumed run draws them
+    again."""
+    seed = ((state.generator.initial_seed() * 1_000_003 + state.step) * 4096 + index) % (1 << 63)
     return torch.Generator(device=state.generator.device).manual_seed(seed)
 
 

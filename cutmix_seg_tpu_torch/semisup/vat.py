@@ -32,7 +32,12 @@ discards at its end (``_PiTeacherStats``).
 
 Over a ``mesh`` of ranks the noise is drawn for the global batch and each
 rank keeps its rows; the direction net runs in eval mode, so each sample's
-direction is its own, and the losses are global (``stepcore``).
+direction is its own, and the losses are global (``stepcore``). With model
+ranks (``--spatial_train``) the batch holds the data index's full crops:
+the noise is normalised and scaled over the full crop (its global H) and
+the radius computed from it (the adaptive radius's central differences
+cross rows), before every image-shaped input is cut to this rank's rows;
+the direction's per-sample squared norm is summed over the model group.
 """
 
 from __future__ import annotations
@@ -43,10 +48,12 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch.nn import functional as F
 
 from cutmix_seg_tpu_torch.core.train_state import TrainState
-from cutmix_seg_tpu_torch.parallel.mesh import global_rows, local_rows
+from cutmix_seg_tpu_torch.parallel.mesh import Mesh, global_rows, local_rows
+from cutmix_seg_tpu_torch.parallel.spatial import model_group, slice_batch_h
 from cutmix_seg_tpu_torch.semisup import losses as L
 from cutmix_seg_tpu_torch.semisup.stepcore import (
     ConsistencyCommon,
@@ -59,7 +66,7 @@ from cutmix_seg_tpu_torch.semisup.stepcore import (
     validate_accum,
 )
 
-__all__ = ["VATConfig", "make_vat_step"]
+__all__ = ["VATConfig", "make_vat_step", "vat_radius"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,9 +76,25 @@ class VATConfig(ConsistencyCommon):
     vat_dir_from_student: bool = False
 
 
-def _normalize_per_sample(x: torch.Tensor) -> torch.Tensor:
-    mag = torch.sqrt((x.reshape(x.shape[0], -1) ** 2).sum(dim=1))
-    return x / (mag[:, None, None, None] + 1e-12)
+def _normalize_per_sample(x: torch.Tensor, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """x over its per-sample L2 norm; with model ranks (x: this rank's rows)
+    the squared norms are summed over the model group."""
+    sq = (x.reshape(x.shape[0], -1) ** 2).sum(dim=1)
+    if mesh is not None and mesh.n_model > 1:
+        dist.all_reduce(sq, group=model_group(mesh))
+    return x / (torch.sqrt(sq)[:, None, None, None] + 1e-12)
+
+
+def vat_radius(cfg: VATConfig, x_stu: torch.Tensor):
+    """Step 4 on the full crops x_stu: ``vat_radius * sqrt(C * H * W)`` (a
+    float), or the adaptive per-sample radius (N, 1, 1, 1)."""
+    n, h, w, c = x_stu.shape
+    if not cfg.adaptive_vat_radius:
+        return cfg.vat_radius * math.sqrt(float(c * h * w))
+    dv = x_stu[:, 2:, :, :] - x_stu[:, :-2, :, :]
+    dh = x_stu[:, :, 2:, :] - x_stu[:, :, :-2, :]
+    mag = torch.sqrt((dv.reshape(n, -1) ** 2).sum(dim=1) + (dh.reshape(n, -1) ** 2).sum(dim=1))
+    return cfg.vat_radius * mag[:, None, None, None] * 0.5
 
 
 def _vat_sum_loss(loss_fn: str, eps_logits: torch.Tensor,
@@ -94,10 +117,12 @@ def _vat_sum_loss(loss_fn: str, eps_logits: torch.Tensor,
 
 
 def adversarial_input(cfg: VATConfig, dir_net: torch.nn.Module, x_tea: torch.Tensor,
-                      x_stu: torch.Tensor, eps0: torch.Tensor) -> torch.Tensor:
-    """Steps 1 and 3-5: ``x_stu`` moved along the power step's direction.
-    ``dir_net`` runs in eval mode; its previous mode is restored."""
-    n, h, w, c = x_stu.shape
+                      x_stu: torch.Tensor, eps0: torch.Tensor, radius=None,
+                      mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Steps 1 and 3-5: ``x_stu`` moved along the power step's direction by
+    ``radius`` (default: ``vat_radius`` of x_stu). ``dir_net`` runs in eval
+    mode; its previous mode is restored. With model ranks in ``mesh`` the
+    images are this rank's rows and ``radius`` is the full crops'."""
     was_training = dir_net.training
     dir_net.eval()
     try:
@@ -110,15 +135,9 @@ def adversarial_input(cfg: VATConfig, dir_net: torch.nn.Module, x_tea: torch.Ten
     finally:
         dir_net.train(was_training)
     with torch.no_grad():
-        direction = _normalize_per_sample(eps_grad)
-        if cfg.adaptive_vat_radius:
-            dv = x_stu[:, 2:, :, :] - x_stu[:, :-2, :, :]
-            dh = x_stu[:, :, 2:, :] - x_stu[:, :, :-2, :]
-            mag = torch.sqrt((dv.reshape(n, -1) ** 2).sum(dim=1)
-                             + (dh.reshape(n, -1) ** 2).sum(dim=1))
-            radius = cfg.vat_radius * mag[:, None, None, None] * 0.5
-        else:
-            radius = cfg.vat_radius * math.sqrt(float(c * h * w))
+        direction = _normalize_per_sample(eps_grad, mesh)
+        if radius is None:
+            radius = vat_radius(cfg, x_stu)
         return x_stu + direction * radius
 
 
@@ -161,12 +180,14 @@ def make_vat_step(model, opt, cfg: VATConfig, mesh=None):
     use_cons = cfg.cons_weight > 0.0
     pi_carry = (K > 1 and not cfg.mean_teacher and not cfg.freeze_bn
                 and not cfg.vat_dir_from_student)
+    spatial = mesh is not None and mesh.n_model > 1
 
     def step(state: TrainState, batch, ramp, eps0: Optional[torch.Tensor] = None):
         teacher = prepare_nets(cfg, state, mesh)
         full = {"sup_x": batch["sup_x"], "sup_y": batch["sup_y"]}
+        radius = None
         if use_cons:
-            x_stu = batch["ux_stu"]
+            x_stu = batch["ux_stu"]  # the full crops
             h, w = x_stu.shape[1:3]
             if eps0 is None:
                 shape = (global_rows(x_stu.shape[0], mesh),) + tuple(x_stu.shape[1:])
@@ -177,6 +198,11 @@ def make_vat_step(model, opt, cfg: VATConfig, mesh=None):
                 eps0 = local_rows(eps0, mesh)
             full.update(ux_tea=batch["ux_tea"], ux_stu=x_stu, um=batch["um"].float(),
                         eps0=eps0)
+            radius = vat_radius(cfg, x_stu)
+            if torch.is_tensor(radius):  # per sample: chunked with the batch
+                full["radius"] = radius
+        if spatial:
+            full = slice_batch_h(full, mesh, per_sample=("radius",))
         tea_stats = _PiTeacherStats(teacher) if use_cons and pi_carry else None
 
         def one_chunk(c):
@@ -184,7 +210,8 @@ def make_vat_step(model, opt, cfg: VATConfig, mesh=None):
             if use_cons:
                 with tea_stats or contextlib.nullcontext():
                     dir_net = state.student if cfg.vat_dir_from_student else teacher
-                    x_adv = adversarial_input(cfg, dir_net, c["ux_tea"], c["ux_stu"], c["eps0"])
+                    x_adv = adversarial_input(cfg, dir_net, c["ux_tea"], c["ux_stu"], c["eps0"],
+                                              c.get("radius", radius), mesh)
                     if tea_stats is None:
                         logits_tea = teacher_forward(cfg, teacher, c["ux_tea"]).float()
                     else:  # the pi carry's own statistics update

@@ -8,7 +8,7 @@ eval pass (``train.common.evaluate``: integer confusion matrices, the
 reference's IoU, 2-class hole filling), on the GPU unless given
 ``--device cpu``. Under torchrun the ranks split each eval batch as the
 trainers do; ``--eval_spatial`` over several ranks splits rows too (the
-DeepLab v2 family only, as in the trainers).
+DeepLab v2 and v3/v3+ families only, as in the trainers).
 
     python -m cutmix_seg_tpu_torch.tools.evaluate_model \
         --dataset pascal_aug --arch resnet101_deeplab_imagenet \
@@ -82,7 +82,7 @@ def main(dataset, arch, model_path, checkpoint, net, split, batch_size,
     mesh_mod.maybe_initialize_distributed(dev)
     # the trainers' refusals at this world size, before the data loads
     check_ported({"arch": arch, "crop_size": "", "n_devices": n_devices,
-                  "eval_spatial": eval_spatial}, spec=None)
+                  "eval_spatial": eval_spatial})
     if dev.type == "cuda":
         torch.backends.cudnn.benchmark = True  # as the trainers evaluate
 

@@ -10,7 +10,7 @@ batch is made from the host streams.
 
 Several GPUs (``torchrun --nproc_per_node=N``; ``parallel.mesh``): rank r is
 JAX process r with one device. With ``--spatial_train S`` (``parallel.spatial``;
-the mask_mt step on DeepLab v2) the N ranks are JAX's 2-D mesh of N / S data
+every step, on DeepLab v2, v3 and v3+) the N ranks are JAX's 2-D mesh of N / S data
 indices by S model ranks, model minor: rank r's data index is r // S, and the
 S ranks of a data index split each image's rows (S = 1: every rank is a data
 index). The global batch is ``batch_size`` times the data indices; data
@@ -40,8 +40,8 @@ host's time.
 
 The JAX trainer's own refusals (a crop height that S does not divide, a
 mismatched ``--n_devices``, a world that S does not divide) and the options
-the port does not run yet (spatial partitioning of the other algorithms and
-architectures, naming ROADMAP A6c) raise at setup, before any data loads
+the port does not run yet (spatial partitioning of the other architectures,
+naming ROADMAP A6c) raise at setup, before any data loads
 (``check_ported``).
 """
 
@@ -93,10 +93,9 @@ class AlgorithmSpec:
     pair_geom: bool
     fetch: Callable
     compose: Callable
-    spatial: bool = False  # the step has a spatial form (--spatial_train)
 
 
-def check_ported(p: dict, spec: AlgorithmSpec) -> int:
+def check_ported(p: dict) -> int:
     """Refuse, before any data loads, what the JAX trainer refuses at this
     process group's world size and then the options the port does not run
     yet (naming their ROADMAP item); returns the H-split ways S of
@@ -118,14 +117,11 @@ def check_ported(p: dict, spec: AlgorithmSpec) -> int:
     spatial_eval = p.get("eval_spatial", False) and world > 1
     if S > 1 or spatial_eval:
         what = f"--spatial_train {S}" if S > 1 else "--eval_spatial over several ranks"
-        if S > 1 and not spec.spatial:
-            raise NotImplementedError(
-                f"not ported yet: {what} for this algorithm (spatial partitioning "
-                f"of the ICT, VAT and aug_mt steps) is {spatial.A6C}")
         if not registry.spatial_ported(p["arch"]):
             raise NotImplementedError(
                 f"not ported yet: {what} with --arch {p['arch']} (spatial forms of "
-                f"its operations; only the DeepLab v2 family has them) is {spatial.A6C}")
+                f"its operations; only the DeepLab v2 and v3/v3+ families have them) "
+                f"is {spatial.A6C}")
     return S
 
 
@@ -154,7 +150,7 @@ class TrainEngine:
         self.device = resolve_device(self.device)
         # before anything touches the data: the refusals depend on the world
         mesh_mod.maybe_initialize_distributed(self.device)
-        self.spatial_n = check_ported(p, self.spec)
+        self.spatial_n = check_ported(p)
         self.mesh = mesh_mod.data_mesh(self.spatial_n)
         self.is_lead = mesh_mod.is_lead()
         if self.device.type == "cuda":

@@ -8,7 +8,7 @@ reference, flags catalogued in CMDLINE_OPTIONS.md). The loop lives in
 ``train.engine``; the step is ``semisup.mask_mt``, whose CutMix blend is the
 CUDA kernel ``csrc/cutmix_blend.cu``. Over several GPUs (``torchrun
 --nproc_per_node=N``) it runs data-parallel, and with ``--spatial_train S``
-on the DeepLab v2 family each image's rows split over S ranks. Options the
+on the DeepLab v2 and v3/v3+ families each image's rows split over S ranks. Options the
 port does not run yet are refused at setup (``engine.check_ported``).
 """
 
@@ -63,7 +63,6 @@ def build_spec(p):
         pair_geom=False,
         fetch=fetch_two_streams if mask_mix else fetch_one_stream,
         compose=compose_mask_pair if mask_mix else compose_mask_single,
-        spatial=True,
     )
     return spec, cfg
 

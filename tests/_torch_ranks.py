@@ -34,6 +34,7 @@ from torch.nn import functional as F
 
 from cutmix_seg_tpu_torch.core import train_state as tts
 from cutmix_seg_tpu_torch.models import common as tcommon
+from cutmix_seg_tpu_torch.models import deeplab3
 from cutmix_seg_tpu_torch.models.deeplab2 import DeepLab2, _param_label
 from cutmix_seg_tpu_torch.parallel.mesh import Mesh, all_reduce_grads, local_rows
 from cutmix_seg_tpu_torch.semisup import aug_cons, ict, mask_mt, vat
@@ -125,6 +126,12 @@ class TinyBN(torch.nn.Module):
 MODELS = {
     "deeplab2": lambda: tcommon.SegModel("tiny", DeepLab2(C, layers=(1, 1, 1, 1)), np.zeros(3),
                                          np.ones(3), (1, 1), _param_label),
+    "deeplabv3": lambda: tcommon.SegModel("tiny", deeplab3.DeepLabV3(C, layers=(1, 1, 1, 1)),
+                                          np.zeros(3), np.ones(3), (1, 1),
+                                          deeplab3._label_imagenet),
+    "deeplabv3plus": lambda: tcommon.SegModel(
+        "tiny", deeplab3.DeepLabV3Plus(C, layers=(1, 1, 1, 1)), np.zeros(3), np.ones(3), (1, 1),
+        deeplab3._label_imagenet),
     "tinybn": lambda: tcommon.SegModel(
         "tiny", TinyBN(), np.zeros(3), np.ones(3), (1, 1),
         lambda m: tcommon.label_params_by_path(m, [("conv0", "pretrained")])),
@@ -141,14 +148,16 @@ SUP_KEYS = ("sup_x", "sup_y")
 class GlobalMasks:
     """Dropout keep masks by call order for the GLOBAL batch, mask k from
     seed 300 + k (test_torch_trainbn.StepMasks), k wrapping at ``per``;
-    a rank takes its rows (of the global chunk, at grad_accum K)."""
+    a rank takes its data index's rows (of the global chunk, at grad_accum
+    K). Under spatial partitioning the port draws the full map's mask (x
+    has the full height) and keeps its rows itself."""
 
     def __init__(self, per: int, mesh):
         self.k, self.per, self.mesh = 0, per, mesh
 
     def draw(self, drop, x):
         n, c, h, w = x.shape
-        rows = n * (1 if self.mesh is None else self.mesh.size)
+        rows = n * (1 if self.mesh is None else self.mesh.n_data)
         keep = np.random.RandomState(300 + self.k % self.per).rand(rows, h, w, c) \
             < 1.0 - drop.rate
         self.k += 1
@@ -276,15 +285,24 @@ def tiny_deeplab(num_classes, dtype=None, pretrained=True):
                             np.zeros(3), np.ones(3), (1, 1), _param_label)
 
 
+def tiny_v3plus(num_classes, dtype=None, pretrained=True):
+    return tcommon.SegModel("tiny", deeplab3.DeepLabV3Plus(num_classes, layers=(1, 1, 1, 1),
+                                                          dtype=dtype),
+                            np.zeros(3), np.ones(3), (1, 1), deeplab3._label_imagenet)
+
+
 def trainer_env(task) -> None:
     """What test_torch_trainer's ``voc`` fixture and tiny arch set up, in a
-    rank process (the config's path comes in the environment)."""
+    rank process (the config's path comes in the environment); a tiny
+    DeepLab v3+ under ``task['arch_v3plus']``."""
     from cutmix_seg_tpu_torch.data import sources
     from cutmix_seg_tpu_torch.models import registry
 
     sources.PascalVOCDataSource.canvas_hw = (48, 48)
     sources.CityscapesDataSource.canvas_hw = task.get("city_canvas", (32, 64))
     registry.register(task["arch"])(tiny_deeplab)
+    if "arch_v3plus" in task:
+        registry.register(task["arch_v3plus"])(tiny_v3plus)
 
 
 class WriteCounter:
@@ -328,25 +346,39 @@ def holes_net():
     return DeepLab2(2, layers=(1, 1, 1, 1)).eval()
 
 
+def trainer_fn(trainer: str):
+    """The port's ``train.<trainer>.train_seg_semisup_<trainer>``."""
+    import importlib
+
+    return getattr(importlib.import_module(f"cutmix_seg_tpu_torch.train.{trainer}"),
+                   f"train_seg_semisup_{trainer}")
+
+
 def task_trainer(task, mesh):
-    """The mask_mt trainer through job.submit for each of ``task['runs']``
-    (desc, param overrides) in turn: each run's final state and this rank's
-    writes; then the eval pass of the last run's teacher (and of a 2-class
-    net with hole filling) over this rank's slices."""
+    """A trainer through job.submit for each of ``task['runs']`` (desc,
+    param overrides) in turn (the mask_mt trainer on ``task['params']``,
+    or the overrides' ``trainer`` on ``task['params_of'][trainer]``): each
+    run's final state and this rank's writes; then, unless ``task['eval']``
+    is False, the eval pass of the last run's teacher (and of a 2-class net
+    with hole filling) over this rank's slices."""
     from cutmix_seg_tpu_torch.core import checkpoint, job
-    from cutmix_seg_tpu_torch.train import mask_mt as tmask_mt
 
     trainer_env(task)
     writes = WriteCounter()
     out = {"runs": {}}
     for desc, overrides in task["runs"]:
-        eng = job.submit("test_torch_ddp", desc, tmask_mt.train_seg_semisup_mask_mt,
-                         dict(task["params"], **overrides), results_root=task["root"])
+        overrides = dict(overrides)
+        trainer = overrides.pop("trainer", "mask_mt")
+        params = task["params"] if trainer == "mask_mt" else task["params_of"][trainer]
+        eng = job.submit("test_torch_ddp", desc, trainer_fn(trainer),
+                         dict(params, **overrides), results_root=task["root"])
         out["runs"][desc] = {"digest": digest(checkpoint.state_to_host(eng.state)),
                              "step": eng.state.step, "start_epoch": eng.start_epoch}
         if desc in task.get("keep_student", ()) and mesh.rank == 0:
             out["runs"][desc]["student"] = eng.state.student.state_dict()
     out["writes"] = dict(writes.counts)
+    if not task.get("eval", True):
+        return out
     if mesh.rank == 0:  # the last run's eval net, for the parent's world-1 eval
         out["teacher"] = eng.eval_net().state_dict()
     for sp in ((False, True) if task.get("eval_spatial") else (False,)):
@@ -400,13 +432,20 @@ class OpNet(torch.nn.Module):
     def __init__(self, op, h, **kw):
         super().__init__()
         self.spatial, self.op, self.h, self.kw = None, op, h, kw
-        if op == "conv":
+        if op in ("conv", "pool_bn"):
             gen = torch.Generator().manual_seed(0)
             self.conv = tcommon.Conv2d(kw["cin"], kw["cout"], kw["k"], stride=kw["s"],
-                                       padding=kw["p"], dilation=kw["d"], bias=True)
+                                       padding=kw["p"], dilation=kw["d"], bias=op == "conv")
             with torch.no_grad():
                 self.conv.weight.normal_(generator=gen)
-                self.conv.bias.normal_(generator=gen)
+                if op == "conv":
+                    self.conv.bias.normal_(generator=gen)
+        if op == "pool_bn":  # ASPP's image pooling: mean, 1x1 conv (no bias), training BN
+            self.bn = tcommon.BatchNorm2d(kw["cout"])
+            self.bn.freeze = False
+            with torch.no_grad():
+                self.bn.weight.copy_(torch.linspace(0.5, 1.5, kw["cout"]))
+                self.bn.bias.copy_(torch.linspace(-0.2, 0.2, kw["cout"]))
 
     def forward(self, x):
         if self.spatial is not None:
@@ -415,6 +454,17 @@ class OpNet(torch.nn.Module):
             return self.conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         if self.op == "pool":
             return tcommon.max_pool_ceil(x, 3, 2, 1, spatial=self.spatial)
+        xc = x.permute(0, 3, 1, 2)
+        if self.op == "pool_floor":
+            return tcommon.max_pool_floor(xc, 3, 2, 1, spatial=self.spatial).permute(0, 2, 3, 1)
+        if self.op == "mean":  # the image pooling, spread back over the rows
+            return tcommon.mean_hw(xc, self.spatial).expand(xc.shape).permute(0, 2, 3, 1)
+        if self.op == "pool_bn":
+            y = F.relu(self.bn(self.conv(tcommon.mean_hw(xc, self.spatial))))
+            return y.expand(-1, -1, *xc.shape[2:]).permute(0, 2, 3, 1)
+        if self.op == "half":  # (split: the output height comes from the trace)
+            y = tcommon.resize_bilinear_half_pixel(xc, self.kw["out"], self.spatial)
+            return y.permute(0, 2, 3, 1)
         return tcommon.upsample_bilinear_align_corners(x, self.kw["out"], spatial=self.spatial)
 
 
@@ -440,6 +490,23 @@ SPATIAL_OPS = {  # name: (op, global input height, options); inputs (2, h, 11, C
     "up_5_to_36": ("up", 5, dict(out=(36, 11))),
     "up_33_to_256": ("up", 33, dict(out=(256, 7))),
     "up_9_to_9": ("up", 9, dict(out=(9, 14))),
+    # DeepLab v3/v3+: the torchvision stem's floor-mode pool, the image
+    # pooling's mean and the half-pixel resizes (ASPP output to layer1's
+    # size, logits to the input's; up and down)
+    "pool_floor_18": ("pool_floor", 18, {}),
+    "pool_floor_65": ("pool_floor", 65, {}),
+    "pool_floor_129": ("pool_floor", 129, {}),
+    "mean_5": ("mean", 5, {}),
+    "mean_33": ("mean", 33, {}),
+    "half_5_to_9": ("half", 5, dict(out=(9, 14))),
+    "half_9_to_36": ("half", 9, dict(out=(36, 11))),
+    "half_33_to_65": ("half", 33, dict(out=(65, 7))),
+    "half_65_to_257": ("half", 65, dict(out=(257, 11))),
+    "half_36_to_17": ("half", 36, dict(out=(17, 8))),
+    "half_7_to_7": ("half", 7, dict(out=(7, 5))),
+    # the pooled value feeds a training BN on every model rank of an image:
+    # its world-wide sums count it S times, its gradient must not
+    "pool_bn_33": ("pool_bn", 33, dict(_conv(3, 4, 1, 1, 0, 1), n=4)),
 }
 
 
@@ -450,11 +517,12 @@ def spatial_op_run(name: str, mesh) -> dict:
     shape) and the conv's weight and bias gradients."""
     op, h, kw = SPATIAL_OPS[name]
     rng = np.random.RandomState(sorted(SPATIAL_OPS).index(name))
-    x = torch.from_numpy(rng.randn(2, h, 11, kw.get("cin", 3)).astype(np.float32))
+    x = torch.from_numpy(rng.randn(kw.get("n", 2), h, 11, kw.get("cin", 3)).astype(np.float32))
     net = OpNet(op, h, **kw)
+    tcommon.set_bn_mesh(net, mesh)
     with torch.no_grad():
         h_out = net(x).shape[1]
-    g = torch.from_numpy(rng.randn(2, h_out, *net(x).shape[2:]).astype(np.float32))
+    g = torch.from_numpy(rng.randn(x.shape[0], h_out, *net(x).shape[2:]).astype(np.float32))
     if mesh is not None:
         from cutmix_seg_tpu_torch.parallel import spatial
 
@@ -466,6 +534,9 @@ def spatial_op_run(name: str, mesh) -> dict:
     res = {"out": out.detach(), "x_grad": x.grad}
     if op == "conv":
         res.update(w_grad=net.conv.weight.grad, b_grad=net.conv.bias.grad)
+    if op == "pool_bn":
+        res.update(w_grad=net.conv.weight.grad, bn_w_grad=net.bn.weight.grad,
+                   bn_b_grad=net.bn.bias.grad, running_var=net.bn.running_var.clone())
     return res
 
 
@@ -496,7 +567,8 @@ def spatial_model_run(task, mesh) -> dict:
     """The tiny DeepLab v2 of ``task['state_dict']`` in eval mode: the
     logits of ``task['x']``, each raw batch's confusion matrix (H padded to
     the split) and the eval passes over ``task['source']`` (plain and with
-    hole filling on a 2-class net) alone (mesh None) or split over
+    hole filling on a 2-class net), and the logits and matrices of the tiny
+    v3 / v3+ of ``task['families']``, alone (mesh None) or split over
     ``mesh``'s ranks (``--eval_spatial``)."""
     from cutmix_seg_tpu_torch.ops.iou import confusion_matrix
     from cutmix_seg_tpu_torch.parallel import spatial
@@ -528,6 +600,28 @@ def spatial_model_run(task, mesh) -> dict:
     out["iou"] = common.evaluate(net, src, idx, 3, C, mean, std, (1, 1), dev, False, mesh, True)
     out["iou_holes"] = common.evaluate(holes_net(), src, idx, 3, 2, mean, std, (1, 1), dev,
                                        True, mesh, True)
+    # DeepLab v3 / v3+ (task['families']: name -> state_dict): the logits
+    # of task['x'] and each raw batch's confusion matrix, the batch padded
+    # to task['pad_h'] rows alone too (the image pooling's mean reads the
+    # padded rows)
+    for name, sd in task.get("families", {}).items():
+        fam = MODELS[name]().module
+        fam.load_state_dict(sd)
+        fam.eval()
+        x = torch.from_numpy(task["x"])
+        with torch.no_grad():
+            if split:
+                spatial.set_spatial(fam, sp_mesh)
+                x = spatial.slice_h(x, sp_mesh)
+            got = {"logits": fam(x), "cms": []}
+        for batch in task["batches"]:
+            batch = spatial.pad_batch_h(batch, task["pad_h"])
+            pred, y = common.predict_rows(fam, batch, mean, std, dev, sp_mesh, split)
+            cm = confusion_matrix(pred, y, C)
+            if mesh is not None:
+                dist.all_reduce(cm)
+            got["cms"].append(cm)
+        out[name] = got
     return out
 
 

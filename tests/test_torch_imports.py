@@ -64,7 +64,7 @@ def test_every_module_imports_on_cpu():
                 "tools.serve_bench", "utils.profiling", "toy2d.data", "toy2d.model",
                 "toy2d.train", "tools.multi_seed_convergence", "analysis.patch_dist",
                 "analysis.intra_inter_class_patch_dist", "analysis.input_distribution_study",
-                "analysis.colour_aug_study", "analysis.plot_patch_distances"):
+                "analysis.colour_aug_study", "analysis.plot_patch_distances", "native.decode"):
         assert f"cutmix_seg_tpu_torch.{mod}" in names, mod
     for name in names:
         importlib.import_module(name)

@@ -1,16 +1,19 @@
-"""The row exchange and the spatial forms of DeepLab v2's cross-row
-operations (``parallel.spatial``, ``models.common``) at S = 2 and 3 model
-ranks (gloo rank processes on the CPU, ``tests/_torch_ranks.py``), against
-the unsplit operation in this process: every conv shape of DeepLab v2 (the
-7x7/2 stem, the 1x1/2 projections, 1x1, the 3x3 dilations 1, 2 and 4 and
-the ASPP's 6-24), the ceil-mode max pool and the align-corners upsample, on
-heights that split unevenly (33, 65, 129) and where a window reaches past
-the neighbouring rank (dilation 6 on 5 rows, 24 on 33). Each rank's output
+"""The row exchange and the spatial forms of the cross-row operations of
+DeepLab v2 and v3/v3+ (``parallel.spatial``, ``models.common``) at S = 2
+and 3 model ranks (gloo rank processes on the CPU,
+``tests/_torch_ranks.py``), against the unsplit operation in this process:
+every conv shape of DeepLab v2 (the 7x7/2 stem, the 1x1/2 projections, 1x1,
+the 3x3 dilations 1, 2 and 4 and the ASPP's 6-24), the ceil-mode max pool
+and the align-corners upsample; v3's floor-mode stem pool, the image
+pooling's global mean (also feeding a training BN, whose world-wide sums
+see each pooled value S times) and the half-pixel resizes (up and down); on
+heights that split unevenly (33, 65, 129, 5, 9) and where a window reaches past the
+neighbouring rank (dilation 6 on 5 rows, 24 on 33). Each rank's output
 rows, input gradient and partial weight gradient must give, concatenated
 or summed, the unsplit op's: outputs and input gradients within 1e-5 (the
-upsample's within 3e-5: torch's align-corners source index is computed in
-float32, the spatial form's from JAX's float64 matrix), weight gradients
-within 1e-5 relative. The layout helpers are held to the JAX module's.
+resizes' wider: torch's source index is computed in float32, the spatial
+form's from a float64 matrix, ``_tol``), weight gradients within 1e-5
+relative. The layout helpers are held to the JAX module's.
 """
 
 import numpy as np
@@ -44,7 +47,15 @@ def split_runs(tmp_path_factory):
     return {S: sp.wait() for S, sp in spawns.items()}, alone
 
 
-def _tol(name):
+def _tol(name, want):
+    """1e-5, but the resizes': the align-corners upsample's 3e-5, and the
+    half-pixel resize's 1e-5 + 2**-21 * h_in * max|want|. Torch computes
+    that source index, (y + 0.5) * h_in / h_out - 0.5, in float32, off by
+    up to h_in * 2**-24 from the float64 matrix's; a weight off by that
+    moves an output by it times a difference of two rows (2 * max|x|), and
+    an input's gradient sums up to 2 * h_out / h_in + 2 such terms."""
+    if name.startswith("half_"):
+        return 1e-5 + 2.0 ** -21 * ranks.SPATIAL_OPS[name][1] * want.abs().max().item()
     return 3e-5 if name.startswith("up_") else 1e-5
 
 
@@ -60,12 +71,15 @@ def test_split_op_matches_unsplit(split_runs, name, S):
     for key in ("out", "x_grad"):
         cat = torch.cat([g[key] for g in got], dim=1)
         assert cat.shape == want[key].shape, key
-        torch.testing.assert_close(cat, want[key], rtol=0, atol=_tol(name), msg=key)
-    for key in ("w_grad", "b_grad"):
+        torch.testing.assert_close(cat, want[key], rtol=0, atol=_tol(name, want[key]), msg=key)
+    for key in ("w_grad", "b_grad", "bn_w_grad", "bn_b_grad"):
         if key in want:
             total = sum(g[key] for g in got)
             scale = want[key].abs().max().item()
             torch.testing.assert_close(total, want[key], rtol=0, atol=1e-5 * scale, msg=key)
+    if "running_var" in want:  # the statistics of the pooled values, once each
+        for g in got:
+            torch.testing.assert_close(g["running_var"], want["running_var"], rtol=1e-5, atol=0)
 
 
 def test_cases_cover_uneven_splits_and_long_halos():
@@ -133,6 +147,22 @@ def test_pad_batch_h_matches_jax(h, multiple):
         np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]), err_msg=k)
     if h % multiple == 0:
         assert got is batch
+
+
+@pytest.mark.parametrize("n_in,n_out", [(5, 9), (9, 36), (36, 17), (7, 7), (1, 4), (4, 1),
+                                        (65, 257)])
+def test_half_pixel_matrix_matches_jax_resize(n_in, n_out):
+    """Each row of ``interp_matrix_half_pixel`` is jax.image.resize's
+    'linear' (antialias off) of a one-hot column, edges included, within
+    n_in * 2**-22: JAX places the samples in float32."""
+    import jax
+    import jax.numpy as jnp
+
+    eye = jnp.eye(n_in, dtype=jnp.float32)[None, :, :, None]  # (1, n_in, n_in, 1)
+    want = np.asarray(jax.image.resize(eye, (1, n_out, n_in, 1), method="linear",
+                                       antialias=False))[0, :, :, 0]
+    np.testing.assert_allclose(spatial.interp_matrix_half_pixel(n_in, n_out), want,
+                               rtol=0, atol=2.0 ** -22 * n_in)
 
 
 def test_interp_matrix_matches_jax():

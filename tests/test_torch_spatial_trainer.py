@@ -16,8 +16,16 @@ end bit-identical; --resume continues exactly; only rank 0 writes; the eval
 passes' IoU, spatial or not, with hole filling too, equal the world-1
 pass's; the final test eval scores the predictions gathered by rows and
 ranks as one process does.
+
+A second spawn runs the recipe's other lines the same way, 1 epoch each
+with --spatial_train 2 --eval_spatial: ICT and aug_mt on the tiny DeepLab
+v2 (aug_mt's warp gathers the teacher's rows), and CutMix on a tiny DeepLab
+v3+ (its dropout masks drawn for the full maps from the state's generator,
+as at world 1); each is held to a world-1 run of the same seed in this
+process as above, and its ranks end bit-identical.
 """
 
+import importlib
 import json
 import os
 import shutil
@@ -27,6 +35,7 @@ import pytest
 import torch
 
 from cutmix_seg_tpu_torch.data import datasets, settings, sources, synthetic
+from cutmix_seg_tpu_torch.models import registry
 from cutmix_seg_tpu_torch.models.deeplab2 import DeepLab2
 from cutmix_seg_tpu_torch.tools import convert_cityscapes
 from cutmix_seg_tpu_torch.train import common
@@ -50,6 +59,26 @@ def _params(**overrides):
     return ttr._params(dataset="cityscapes", n_sup=2, batch_size=4, crop_size="16,32",
                        aug_scale_hung=False, num_epochs=2, iters_per_epoch=2,
                        data_on_device="off", **overrides)
+
+
+TINY_V3PLUS = "tiny_deeplabv3plus_spatial_test"
+registry.register(TINY_V3PLUS)(ranks.tiny_v3plus)
+LINES = {  # desc: (trainer, overrides): the recipe's lines, 1 epoch each
+    "ict": ("ict", dict(ict_alpha=0.1)),
+    "aug_mt": ("aug_mt", {}),
+    "v3plus_cutmix": ("mask_mt", dict(arch=TINY_V3PLUS)),
+}
+
+
+def _line_params(trainer, **overrides):
+    """``trainer``'s CLI defaults, with the spatial line's flags that its
+    CLI has, for 1 epoch."""
+    p = dict(importlib.import_module(f"cutmix_seg_tpu_torch.train.{trainer}")
+             .experiment.make_context("experiment", []).params)
+    del p["job_desc"]
+    p.update({k: v for k, v in _params(save_model=False).items() if k in p})
+    p.update(num_epochs=1, device="cpu", **overrides)
+    return p
 
 
 @pytest.fixture(scope="module")
@@ -87,6 +116,48 @@ def runs(city):
     # the runs' checkpoints: ~130 MB each
     shutil.rmtree(root)
     shutil.rmtree(city / "world1")
+
+
+@pytest.fixture(scope="module")
+def line_runs(city):
+    """(each rank's results, {desc: the world-1 run's engine}) of LINES."""
+    root = str(city / "results_lines")
+    trainers = sorted({t for t, _ in LINES.values() if t != "mask_mt"})
+    task = {"kind": "trainer", "n_model": 2, "arch": ttr.TINY_ARCH, "arch_v3plus": TINY_V3PLUS,
+            "root": root, "params": _line_params("mask_mt", spatial_train=2, eval_spatial=True),
+            "params_of": {t: _line_params(t, spatial_train=2, eval_spatial=True)
+                          for t in trainers},
+            "runs": [(d, dict(kw, trainer=t)) for d, (t, kw) in LINES.items()],
+            "city_canvas": CANVAS, "keep_student": tuple(LINES), "eval": False}
+    spawn = ranks.RankProcesses(city, task, WORLD, timeout=300)
+    try:
+        world1 = {d: ttr.job.submit("test_torch_world1", d, ranks.trainer_fn(t),
+                                    _line_params(t, **kw), results_root=str(city / "world1_lines"))
+                  for d, (t, kw) in LINES.items()}
+    except BaseException:
+        spawn.kill()
+        raise
+    yield spawn.wait(), world1, root
+    shutil.rmtree(root)
+    shutil.rmtree(city / "world1_lines")
+
+
+@pytest.mark.parametrize("desc", sorted(LINES))
+def test_line_matches_world1_of_the_same_seed(line_runs, desc):
+    (r0, r1), world1, root = line_runs
+    assert r0["runs"][desc]["digest"] == r1["runs"][desc]["digest"]
+    got = _records(os.path.join(_run_dir(root, desc), f"metrics_{desc}.jsonl"))
+    want = _records(os.path.join(world1[desc].ctx.run_dir, f"metrics_{desc}.jsonl"))
+    assert [r["epoch"] for r in got] == [r["epoch"] for r in want] == [1]
+    for g, w in zip(got, want):
+        for k in ("sup_loss", "cons_loss", "conf_rate"):
+            np.testing.assert_allclose(g[k], w[k], rtol=1e-5, atol=1e-7, err_msg=k)
+        assert g["val_miou"] == w["val_miou"]
+    eng = world1[desc]
+    bound = 2 * eng.p["learning_rate"] * eng.state.step + 1e-6  # Adam's 2 * lr * steps
+    for k, w in eng.state.student.state_dict().items():
+        d = (r0["runs"][desc]["student"][k] - w).abs().max().item()
+        assert d <= bound, (k, d)
 
 
 def _run_dir(root, desc):

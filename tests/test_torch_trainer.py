@@ -150,8 +150,8 @@ def test_checkpoint_restores_the_saved_state(voc, tmp_path):
 REFUSED = {  # case: (overrides, world size, the exception, its message)
     # --n_devices must be the world size (one GPU per process)
     "n_devices": (dict(n_devices=2), 1, ValueError, "--n_devices 2 does not match"),
-    # spatial eval over several ranks runs on DeepLab v2 only
-    "eval_spatial": (dict(eval_spatial=True, arch="resnet101_deeplabv3_imagenet"), 2,
+    # spatial eval over several ranks runs on DeepLab v2 and v3/v3+ only
+    "eval_spatial": (dict(eval_spatial=True, arch="resnet50unet_imagenet"), 2,
                      NotImplementedError, "ROADMAP A6c"),
     # the world must split into S-rank groups (JAX make_mesh's message)
     "spatial_train": (dict(spatial_train=2), 1, ValueError,

@@ -176,13 +176,16 @@ def test_left_out_options_raise_before_data_loads(name, case, tmp_path, monkeypa
 
 
 @pytest.mark.parametrize("name", sorted(TRAINERS))
-def test_spatial_train_refused_for_the_algorithm(name, tmp_path, monkeypatch):
-    """--spatial_train runs for mask_mt only: the other steps have no
-    spatial form yet (ROADMAP A6c), even on DeepLab v2."""
-    monkeypatch.setattr(engine.datasets, "load_dataset", None)
+def test_spatial_train_refused_for_the_algorithm(name, monkeypatch):
+    """--spatial_train 2 at world 2: every step has a spatial form, so
+    ``check_ported`` accepts each algorithm on DeepLab v2 (and v3+); it
+    still refuses an architecture without the spatial forms of its
+    operations (DenseUNet-161, ROADMAP A6c)."""
     monkeypatch.setattr(mesh, "world", lambda: 2)
-    with pytest.raises(NotImplementedError, match="for this algorithm .* ROADMAP A6c"):
-        _submit(name, tmp_path / "results", "spatial", spatial_train=2)
+    for arch in ("resnet101_deeplab_imagenet", "resnet101_deeplabv3plus_imagenet"):
+        assert engine.check_ported(_params(name, arch=arch, spatial_train=2)) == 2
+    with pytest.raises(NotImplementedError, match="densenet161unet .* ROADMAP A6c"):
+        engine.check_ported(_params(name, arch="densenet161unet", spatial_train=2))
 
 
 @pytest.mark.parametrize("name", sorted(TRAINERS))
