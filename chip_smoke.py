@@ -153,11 +153,26 @@ Phases, in order; any failure exits non-zero before the result lines:
      does, bit-equal to PIL on the VOC tree's JPEGs and PNGs; if not, the
      loader's arrays equal PIL's under ``auto`` and
      CUTMIX_SEG_NATIVE_DECODE=1 raises;
-  12. the kernel summary line and, last, the device line.
+  12. spatial partitioning of PSPNet, the ResUNets and DenseUNet, two gloo
+     ranks sharing the card: 12a the tiny DenseUNet's CutMix, ResUNet's
+     aug_mt and PSPNet's ICT steps (f32, TF32 off, training BN, host-drawn
+     dropout masks, 2 steps; the U-Nets at 96 rows, whose average pool and
+     nearest upsample straddle the split, PSPNet's pyramid bins on a 5-row
+     map) against one process: ranks bit-identical, within phase 3's
+     bounds, one launch per rank per CutMix step and none on the others;
+     12b the ISIC recipe's CutMix line (DenseUNet-161, bs 10, 224^2,
+     training BN, dropout, SGD 0.1 poly, --bin_fill_holes) on phase 6c's
+     synthetic ISIC zip and 12c PSPNet R101 (CutMix) and ResUNet-101
+     (aug_mt) on phase 6d's Cityscapes frames (bf16, bs 4, 256x512), each
+     2 epochs x 2 iterations at world 1 in this process and then with
+     --spatial_train 2 --eval_spatial: as 11a, the epoch lines,
+     ms/iteration, each rank's peak beside world 1's, the launches per rank
+     and the split eval's differing val pixels (each a near tie);
+  13. the kernel summary line and, last, the device line.
 
 Imports nothing of JAX: it runs where only PyTorch and the CUDA toolkit are.
 ``python3 chip_smoke.py --rank-of <kind> <dir> ...`` is a rank process of
-phase 7, 8 or 11a, started by the script itself.
+phase 7, 8, 11a or 12, started by the script itself.
 """
 
 from __future__ import annotations
@@ -1830,14 +1845,19 @@ SPATIAL_STEPS = 2
 # first pays cuDNN's choice of algorithms for the ranks' shapes; the second
 # is timed)
 SPATIAL_ITERS = 3
-SPATIAL_FLAGS = CITYSCAPES_CUTMIX + [f"--iters_per_epoch={SPATIAL_ITERS}", "--num_epochs=2"]
+# one checkpoint a run, at its last epoch (CKPT_LAST): the R101, PSPNet and
+# DenseUNet-161 checkpoints of phases 8-12 are ~1 GB each, and the whole
+# script's disk writes must stay within a 45 GiB disk
+CKPT_LAST = "--checkpoint_interval=2"
+SPATIAL_FLAGS = CITYSCAPES_CUTMIX + [f"--iters_per_epoch={SPATIAL_ITERS}", "--num_epochs=2",
+                                     CKPT_LAST]
 
 
-def _spatial_case(name: str, mesh) -> tuple:
-    """An 8a case on cuda:0: over ``mesh`` (each rank its rows of the
-    images) or, with None, the whole batch in one process: _run_tiny's
-    (metrics, tensors)."""
-    algo, make_module, (n, h, w), cfg, make_step = SPATIAL_CASES[name]
+def _spatial_case(name: str, mesh, cases=None) -> tuple:
+    """An 8a case (12a: of FAMILY_CASES) on cuda:0: over ``mesh`` (each
+    rank its rows of the images) or, with None, the whole batch in one
+    process: _run_tiny's (metrics, tensors)."""
+    algo, make_module, (n, h, w), cfg, make_step = (cases or SPATIAL_CASES)[name]
     rng = np.random.RandomState(9)
     nb = _tiny_batch(algo, n, h, w, rng)
     if algo == "mask_mt" and cfg.mask_mode == "zero":
@@ -1856,48 +1876,56 @@ def _spatial_case(name: str, mesh) -> tuple:
         Dropout.draw_keep = draw_keep
 
 
-def _spatial_steps_rank() -> dict:
-    """One rank of 8a: gloo on the one card, the images' rows split over
-    the two ranks (--spatial_train 2)."""
+def _spatial_steps_rank(cases=None) -> dict:
+    """One rank of 8a (12a: FAMILY_CASES): gloo on the one card, the
+    images' rows split over the two ranks (--spatial_train 2)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     maybe_initialize_distributed("cuda:0", backend="gloo")
     try:
         mesh = data_mesh(2)
         build.launch_counts.clear()
-        runs = {name: _spatial_case(name, mesh) for name in SPATIAL_CASES}
+        runs = {name: _spatial_case(name, mesh, cases) for name in cases or SPATIAL_CASES}
         return {"runs": runs, "launches": build.launch_counts.get(KERNEL, 0),
                 "backend": dist.get_backend(), "mesh": tuple(mesh)}
     finally:
         dist.destroy_process_group()
 
 
-def phase_spatial_steps(tmp: str) -> dict:
+def phase_spatial_steps(tmp: str, cases=None, tag: str = "8a") -> dict:
     """8a: the tiny CutMix and Cutout steps with each image's rows split
     over two ranks sharing the card, against one process on the card over
-    the same batch (f32, TF32 off)."""
+    the same batch (f32, TF32 off); 12a the same for FAMILY_CASES."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    cases_ = cases or SPATIAL_CASES
     t0 = time.perf_counter()
-    ranks = _spawn_ranks("spatial_steps", 2, tmp, 600)
+    ranks = _spawn_ranks("family_steps" if cases else "spatial_steps", 2, tmp, 600)
     t_ranks = time.perf_counter() - t0
     if any(r["backend"] != "gloo" or r["mesh"] != (2, i, 2) for i, r in enumerate(ranks)):
-        raise RuntimeError("8a: the ranks did not run as two gloo ranks of one image")
-    for name in SPATIAL_CASES:
+        raise RuntimeError(f"{tag}: the ranks did not run as two gloo ranks of one image")
+    for name in cases_:
         (m0, t0_), (m1, t1_) = ranks[0]["runs"][name], ranks[1]["runs"][name]
         if m0 != m1 or not all(torch.equal(a[k], b[k]) for a, b in zip(t0_, t1_) for k in a):
-            raise RuntimeError(f"8a {name}: the ranks' states differ")
-        one = _spatial_case(name, None)
-        _, _, (n, h, w), _, _ = SPATIAL_CASES[name]
+            raise RuntimeError(f"{tag} {name}: the ranks' states differ")
+        one = _spatial_case(name, None, cases)
+        _, _, (n, h, w), _, _ = cases_[name]
         _check_small_run(f"H split over 2 ranks {name}",
                          {"cpu": one, "cuda": ranks[0]["runs"][name]}, n * h * w,
                          SPATIAL_STEPS, 3e-4, labels=("one process", "2 ranks"))
     per_rank = [r["launches"] for r in ranks]
     n_mix = sum(algo == "mask_mt" and cfg.mask_mode == "mix"
-                for algo, _, _, cfg, _ in SPATIAL_CASES.values())
+                for algo, _, _, cfg, _ in cases_.values())
     if per_rank != [n_mix * SPATIAL_STEPS] * 2:
-        raise RuntimeError(f"8a: {per_rank} {KERNEL} launches per rank, expected "
+        raise RuntimeError(f"{tag}: {per_rank} {KERNEL} launches per rank, expected "
                            f"{n_mix * SPATIAL_STEPS} each")
+    if cases:
+        note(f"[spatial families] 12a: {sorted(cases)} with the rows split over two gloo "
+             f"ranks on one card: ranks bit-identical after each of {SPATIAL_STEPS} steps, "
+             f"within phase 3's bounds of one process; {per_rank} {KERNEL} launches per rank "
+             f"(one per CutMix step, on the full crops; none on the others); the ranks took "
+             f"{t_ranks:.1f} s with their start-up")
+        return {"launches": sum(per_rank), "ranks_s": t_ranks}
     note(f"[spatial] 8a: {sorted(SPATIAL_CASES)} at 36x33 crops (DeepLab v2 feature maps of "
          f"18, 10, 5 rows; v3+ 18, 9, 5) with the rows split over two gloo ranks on one card: "
          f"ranks bit-identical after each of {SPATIAL_STEPS} steps, within phase 3's bounds of "
@@ -2090,7 +2118,7 @@ LINE_ITERS = 2
 CITY_BASE = [f for f in CITYSCAPES_CUTMIX
              if not f.startswith(("--mask_mode", "--mask_prop_range", "--iters_per_epoch",
                                   "--num_epochs", "--cons_weight", "--conf_thresh"))] + [
-    f"--iters_per_epoch={LINE_ITERS}", "--num_epochs=2"]
+    f"--iters_per_epoch={LINE_ITERS}", "--num_epochs=2", CKPT_LAST]
 SPATIAL_LINES = {
     "v3plus_cutmix": ("mask_mt", [f for f in CITY_BASE if not f.startswith("--arch")] + [
         "--arch=resnet101_deeplabv3plus_imagenet", "--cons_weight=1.0", "--mask_mode=mix",
@@ -2099,15 +2127,16 @@ SPATIAL_LINES = {
 }
 
 
-def _spatial_lines_rank(results: str) -> dict:
-    """One rank of 11a: each of SPATIAL_LINES with --spatial_train 2
-    --eval_spatial through job.submit over two gloo ranks sharing the card;
-    after each, the val frames' predictions with the rows split (rank 0
-    saves the line's teacher and its split first-batch logits)."""
+def _spatial_lines_rank(results: str, lines=None) -> dict:
+    """One rank of 11a (12b-c: FAMILY_LINES): each of SPATIAL_LINES with
+    --spatial_train 2 --eval_spatial through job.submit over two gloo ranks
+    sharing the card; after each, the val frames' predictions with the rows
+    split (rank 0 saves the line's teacher and its split first-batch
+    logits)."""
     maybe_initialize_distributed("cuda:0", backend="gloo")
     try:
         rank, out = dist.get_rank(), {}
-        for desc, (algo, flags) in SPATIAL_LINES.items():
+        for desc, (algo, flags) in (lines or SPATIAL_LINES).items():
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             engine, launches, log = _run_trainer(
@@ -2135,21 +2164,25 @@ def _epoch2_ms(run_dir: str, desc: str) -> float:
         return json.loads(f.readlines()[-1])["train_time"] / LINE_ITERS * 1e3
 
 
-def phase_spatial_lines(tmp: str, voc_root: str) -> dict:
+def phase_spatial_lines(tmp: str, voc_root: str, lines=None, isic_zip=None,
+                        tag: str = "11a") -> dict:
     """11a: SPATIAL_LINES at full width (bf16, bs 4, 256x512 crops, 19
     classes) at world 1 in this process, then with --spatial_train 2
     --eval_spatial over two gloo ranks sharing the card; per line the
     epoch lines, ms/iteration, each rank's peak, the kernel's launches per
-    rank (one per iteration on the CutMix line, none on the others) and the
-    split eval's differing val pixels against world 1 (each a near tie)."""
+    rank (one per iteration on the CutMix lines, none on the others) and the
+    split eval's differing val pixels against world 1 (each a near tie).
+    12b-c: the same for FAMILY_LINES (the ISIC line on ``isic_zip``)."""
+    kind = "family_lines" if lines else "spatial_lines"
+    lines = lines or SPATIAL_LINES
     os.environ["CUTMIX_SEG_CONFIG"] = write_config(
-        os.path.join(tmp, "seg_lines.cfg"), voc_root,
+        os.path.join(tmp, f"seg_{kind}.cfg"), voc_root, isic_zip,
         cityscapes_zip=os.path.join(tmp, "cityscapes.zip"))
     settings._config = None
-    results = os.path.join(tmp, "results_lines")
+    results = os.path.join(tmp, f"results_{kind}")
     os.makedirs(results, exist_ok=True)
     world1 = {}
-    for desc, (algo, flags) in SPATIAL_LINES.items():
+    for desc, (algo, flags) in lines.items():
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         engine, launches, log = _run_trainer(results, flags, None, algo, desc=desc)
@@ -2157,32 +2190,32 @@ def phase_spatial_lines(tmp: str, voc_root: str) -> dict:
                         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                         "ms_per_iter": _epoch2_ms(engine.ctx.run_dir, desc)}
     t0 = time.perf_counter()
-    ranks = _spawn_ranks("spatial_lines", 2, results, 900)
+    ranks = _spawn_ranks(kind, 2, results, 900)
     t_ranks = time.perf_counter() - t0
     if any(r["backend"] != "gloo" for r in ranks):
-        raise RuntimeError("11a: the ranks did not run over gloo")
+        raise RuntimeError(f"{tag}: the ranks did not run over gloo")
     n = 2 * LINE_ITERS
     out = {"ranks_s": t_ranks}
-    for desc, (algo, _) in SPATIAL_LINES.items():
+    for desc, (algo, _) in lines.items():
         w1 = world1.pop(desc)
         got = [r["lines"][desc] for r in ranks]
         if any(g["mesh"] != (2, i, 2) or g["step"] != n for i, g in enumerate(got)):
-            raise RuntimeError(f"11a {desc}: the ranks did not run {n} steps as two ranks of "
+            raise RuntimeError(f"{tag} {desc}: the ranks did not run {n} steps as two ranks of "
                                "one image")
         want = n if algo == "mask_mt" else 0
         per_rank = [g["launches"] for g in got]
         if per_rank != [want] * 2 or w1["launches"] != want:
-            raise RuntimeError(f"11a {desc}: {per_rank} {KERNEL} launches per rank and "
+            raise RuntimeError(f"{tag} {desc}: {per_rank} {KERNEL} launches per rank and "
                                f"{w1['launches']} at world 1, expected {want} each")
         saved = torch.load(os.path.join(results, f"{desc}_eval.pt"))
         engine = w1.pop("engine")
         engine.eval_net().load_state_dict(saved["teacher"])
-        ev = _check_split_eval(f"11a {desc}", engine, saved["logits"],
-                               [g["preds"] for g in got], 19)
+        ev = _check_split_eval(f"{tag} {desc}", engine, saved["logits"],
+                               [g["preds"] for g in got], engine.n_classes)
         del engine
         ms = _epoch2_ms(got[0]["run_dir"], f"{desc}_spatial")
         peaks = [g["peak_mem_gib"] for g in got]
-        note(f"[spatial lines] 11a {desc} ({algo}, --spatial_train 2 --eval_spatial, two gloo "
+        note(f"[spatial lines] {tag} {desc} ({algo}, --spatial_train 2 --eval_spatial, two gloo "
              f"ranks on one card): epoch 2 {got[0]['losses']}; {ms:.2f} ms/iteration; peak per "
              f"rank {peaks[0]:.2f} / {peaks[1]:.2f} GiB; {per_rank} {KERNEL} launches per rank "
              f"in {n} iterations; split eval: {ev['pixels_differ']} of {ev['pixels']} val pixels "
@@ -2198,8 +2231,41 @@ def phase_spatial_lines(tmp: str, voc_root: str) -> dict:
                      "eval_ms": [g["eval_ms"] for g in got],
                      "eval_ms_world1": ev["eval_ms_world1"]}
         torch.cuda.empty_cache()
-    note(f"[spatial lines] 11a: the ranks took {t_ranks:.1f} s with their start-up")
+    note(f"[spatial lines] {tag}: the ranks took {t_ranks:.1f} s with their start-up")
     return out
+
+
+# phase 12: spatial partitioning of PSPNet, the ResUNets and DenseUNet.
+# 12a: name -> (TINY_ALGOS' draws, module, (global n, h, w), config, step
+# factory), training BN and host-drawn dropout masks: the U-Nets at 96
+# rows (their 1/32 map has 3 rows, split 2/1: the 6 -> 3 average pool and
+# the 3 -> 6 nearest upsample straddle the split), PSPNet at 36 (a 5-row
+# map split 3/2 under 6 pyramid bins); the gate open (a random net's
+# confidences sit near 1/C, where a gate flips on ties, as 8a's v3+ case)
+FAMILY_CASES = {
+    "denseunet cutmix": ("mask_mt", lambda: DenseUNet(4, block_config=(2, 2, 2, 2)),
+                         (2, 96, 64), MaskConsistencyConfig(conf_thresh=0.0, freeze_bn=False),
+                         make_mask_mt_step),
+    "resunet aug_mt": ("aug_mt", lambda: ResUNet(4, layers=TINY), (2, 96, 64),
+                       AugConsConfig(conf_thresh=0.0, freeze_bn=False), make_aug_cons_step),
+    "pspnet ict": ("ict", lambda: PSPNet(4, layers=TINY), (4, 36, 33),
+                   ICTConfig(ict_alpha=0.5, conf_thresh=0.0, freeze_bn=False), make_ict_step),
+}
+# 12b-c: desc -> (trainer, flags), 2 epochs of LINE_ITERS iterations each,
+# eval at the end of each: the ISIC recipe's CutMix line (phase 6c's flags,
+# DenseUNet-161, bs 10, 224^2, training BN, dropout, SGD 0.1 poly,
+# --bin_fill_holes) on phase 6c's synthetic ISIC zip; PSPNet R101 with
+# CutMix and ResUNet-101 with the aug_mt regulariser (no kernel on its
+# path) on phase 6d's converted Cityscapes frames (bf16, bs 4, 256x512)
+FAMILY_LINES = {
+    "isic_cutmix": ("mask_mt", ISIC_COMMON + ISIC_LINES["cutmix"][1] + [
+        "--no_pretrained", f"--iters_per_epoch={LINE_ITERS}", "--num_epochs=2", CKPT_LAST]),
+    "pspnet_cutmix": ("mask_mt", [f for f in CITY_BASE if not f.startswith("--arch")] + [
+        "--arch=resnet101_pspnet_imagenet", "--cons_weight=1.0", "--mask_mode=mix",
+        "--mask_prop_range=0.5", "--conf_thresh=0.97"]),
+    "resunet101_aug_mt": ("aug_mt", [f for f in CITY_BASE if not f.startswith("--arch")] + [
+        "--arch=resnet101unet_imagenet"] + RECIPE_ALGOS["aug_mt"][2]),
+}
 
 
 def phase_native_decoder(voc_root: str) -> dict:
@@ -3069,13 +3135,15 @@ def phase_patch_study(tmp: str, voc_root: str) -> dict:
 
 def rank_main(argv) -> int:
     """A rank process of phase 7a (two cards; ``out_dir`` is the results
-    root), 7b, 8a, 8b or 11a."""
+    root), 7b, 8a, 8b, 11a, 12a or 12b-c."""
     kind, out_dir = argv
     rank = int(os.environ["RANK"])
     run = {"ddp_trainer": lambda: _ddp_trainer_rank(out_dir), "ddp_steps": _ddp_steps_rank,
            "spatial_steps": _spatial_steps_rank,
            "spatial_trainer": lambda: _spatial_trainer_rank(out_dir),
-           "spatial_lines": lambda: _spatial_lines_rank(out_dir)}[kind]
+           "spatial_lines": lambda: _spatial_lines_rank(out_dir),
+           "family_steps": lambda: _spatial_steps_rank(FAMILY_CASES),
+           "family_lines": lambda: _spatial_lines_rank(out_dir, FAMILY_LINES)}[kind]
     torch.save(run(), os.path.join(out_dir, f"{kind}_{rank}.pt"))
     return 0
 
@@ -3159,6 +3227,11 @@ def main() -> int:
         lines = phase_spatial_lines(tmp, voc_root)
         native = phase_native_decoder(voc_root)
         note(f"[phase 11] {time.perf_counter() - t11:.1f} s")
+        torch.cuda.empty_cache()
+        t12 = time.perf_counter()
+        family_steps = phase_spatial_steps(tmp, FAMILY_CASES, "12a")
+        family_lines = phase_spatial_lines(tmp, voc_root, FAMILY_LINES, isic_zip, "12b-c")
+        note(f"[phase 12] {time.perf_counter() - t12:.1f} s")
     kernels = [{
         "name": KERNEL, "route": "cuda",
         "source": "cutmix_seg_tpu_torch/csrc/cutmix_blend.cu",
@@ -3211,7 +3284,15 @@ def main() -> int:
                                 for d, x in lines.items() if d != "ranks_s" for r in (0, 1)},
                              **{f"trainer Cityscapes {d} world 1 (phase 11a)":
                                 x["launches_world1"]
-                                for d, x in lines.items() if d != "ranks_s"}},
+                                for d, x in lines.items() if d != "ranks_s"},
+                             "step H split over 2 ranks gloo, PSPNet / ResUNet / DenseUNet "
+                             "(phase 12a)": family_steps["launches"],
+                             **{f"trainer {d} --spatial_train 2, rank {r} (phase 12b-c)":
+                                x["launches"][r]
+                                for d, x in family_lines.items() if d != "ranks_s"
+                                for r in (0, 1)},
+                             **{f"trainer {d} world 1 (phase 12b-c)": x["launches_world1"]
+                                for d, x in family_lines.items() if d != "ranks_s"}},
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
         "kernel_us": k["ms"] * 1e3, "plain_us": k["plain_ms"] * 1e3,

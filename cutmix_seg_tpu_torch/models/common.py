@@ -383,37 +383,90 @@ def max_pool_floor(x: torch.Tensor, window: int, stride: int, padding: int,
     return F.max_pool2d(win, window, stride, (0, padding))
 
 
-class _RowsMean(torch.autograd.Function):
-    """``apply(x, count, group)``: the mean over H and W (keepdim) of an
-    NCHW map whose rows the ranks of ``group`` share, from float32 row sums
-    summed over the group. Each rank's pooled value feeds only its own rows
-    downstream, so the backward sums the pooled gradient over the group
-    before spreading it over this rank's pixels."""
+def avg_pool_floor(x: torch.Tensor, window: int, stride: int,
+                   spatial: Optional[SpatialRows] = None) -> torch.Tensor:
+    """Average pool with floor-mode output size and no padding (NCHW):
+    ``F.avg_pool2d(x, window, stride)``, flax's ``nn.avg_pool`` (DenseNet's
+    transitions).
+
+    With ``spatial`` (x: this rank's rows), the rows of this rank's output
+    windows come through the row exchange: a window straddles the split
+    where an output range starts on an odd row pair (14 rows split 7/7 give
+    7 split 4/3, and output row 3 reads rows 6 and 7)."""
+    if spatial is None or spatial.tracing:
+        y = F.avg_pool2d(x, window, stride)
+        if spatial is not None:
+            spatial.record(x.shape[2], y.shape[2])
+        return y
+    h_in, h_out = spatial.next_op(x.shape[2])
+    win = spatial.window(x, h_in, _pool_windows(h_out, spatial.ways, window, stride, 0), 0.0)
+    return F.avg_pool2d(win, window, stride)
+
+
+def _bin_edges(n: int, bins: int):
+    """torch's AdaptiveAvgPool2d bins of n: [floor(b n / bins), ceil((b + 1) n / bins))."""
+    return [((b * n) // bins, -(-((b + 1) * n) // bins)) for b in range(bins)]
+
+
+@functools.lru_cache(maxsize=None)
+def _bin_matrix(n: int, bins: int, lo: int, hi: int) -> torch.Tensor:
+    """(bins, hi - lo) float32: 1 where bin b covers row lo + r."""
+    m = torch.zeros((bins, hi - lo), dtype=torch.float32)
+    for b, (a, e) in enumerate(_bin_edges(n, bins)):
+        if min(e, hi) > max(a, lo):
+            m[b, max(a, lo) - lo:min(e, hi) - lo] = 1.0
+    return m
+
+
+class _RowsBinMean(torch.autograd.Function):
+    """``apply(x, h, bins, rows, group)``: the adaptive average pool into
+    (bins, bins) of an NCHW map of global height h whose rows ``rows`` =
+    (lo, hi) this rank holds, from float32 sums of its rows in each bin
+    summed over ``group``. The pooled map is the same on every rank of the
+    group and feeds only the rank's own rows downstream, so the backward
+    sums the pooled gradient over the group before spreading it over this
+    rank's pixels of each bin."""
 
     @staticmethod
-    def forward(ctx, x, count, group):
-        sums = x.float().sum(dim=(2, 3), keepdim=True)
+    def forward(ctx, x, h, bins, rows, group):
+        my = _bin_matrix(h, bins, *rows).to(x.device)
+        mx = _bin_matrix(x.shape[3], bins, 0, x.shape[3]).to(x.device)
+        # contiguous: gloo summed an einsum's strided output wrongly (S = 3)
+        sums = torch.einsum("br,ncrd->ncbd", my,
+                            torch.einsum("ncrw,dw->ncrd", x.float(), mx)).contiguous()
         dist.all_reduce(sums, group=group)
-        ctx.x_shape, ctx.count, ctx.group = x.shape, count, group
-        return (sums / count).to(x.dtype)
+        counts = torch.outer(*(torch.tensor([float(e - a) for a, e in _bin_edges(n, bins)],
+                                            device=x.device) for n in (h, x.shape[3])))
+        ctx.save_for_backward(my, mx, counts)
+        ctx.group, ctx.dtype = group, x.dtype
+        return (sums / counts).to(x.dtype)
 
     @staticmethod
     def backward(ctx, grad):
+        my, mx, counts = ctx.saved_tensors
         g = grad.to(torch.float32, copy=True)
         dist.all_reduce(g, group=ctx.group)
-        return (g / ctx.count).to(grad.dtype).expand(ctx.x_shape), None, None
+        g = torch.einsum("ncbw,br->ncrw", torch.einsum("ncbd,dw->ncbw", g / counts, mx), my)
+        return g.to(ctx.dtype), None, None, None, None
 
 
-def mean_hw(x: torch.Tensor, spatial: Optional[SpatialRows] = None) -> torch.Tensor:
-    """The mean over H and W of an NCHW map, keepdim (DeepLab v3's image
-    pooling). With ``spatial`` (x: this rank's rows) the row sums are
-    summed over the model group and divided by the traced global H x W."""
+def adaptive_avg_pool(x: torch.Tensor, bins: int,
+                      spatial: Optional[SpatialRows] = None) -> torch.Tensor:
+    """``F.adaptive_avg_pool2d(x, bins)`` (NCHW): bin b covers [floor(b n /
+    bins), ceil((b + 1) n / bins)) of a side n, so neighbouring bins may
+    overlap, and more bins than rows repeat rows (PSPNet's pyramid); one
+    bin is the mean over H and W (DeepLab v3's image pooling).
+
+    With ``spatial`` (x: this rank's rows) the pooled map is whole and the
+    same on every rank of the model group (``_RowsBinMean``): it is traced
+    as (h, h), not as a layer of ``bins`` rows, which could not split (a
+    bin-1 map has one row)."""
     if spatial is None or spatial.tracing:
         if spatial is not None:
             spatial.record(x.shape[2], x.shape[2])
-        return x.mean(dim=(2, 3), keepdim=True)
+        return F.adaptive_avg_pool2d(x, bins)
     h, _ = spatial.next_op(x.shape[2])
-    return _RowsMean.apply(x, h * x.shape[3], spatial.group)
+    return _RowsBinMean.apply(x, h, bins, spatial.own(h), spatial.group)
 
 
 def upsample_bilinear_align_corners(x: torch.Tensor, out_hw: Tuple[int, int],
@@ -469,9 +522,25 @@ def _matrix_rows(matrix, h_in: int, h_out: int, ways: int):
     return windows, rows
 
 
-def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
-    """Nearest-neighbour 2x upsampling (NCHW)."""
-    return F.interpolate(x, scale_factor=2.0, mode="nearest")
+def upsample_nearest_2x(x: torch.Tensor,
+                        spatial: Optional[SpatialRows] = None) -> torch.Tensor:
+    """Nearest-neighbour 2x upsampling (NCHW).
+
+    With ``spatial`` (x: this rank's rows), output row i reads input row
+    i // 2, which the neighbouring rank owns where the split is uneven (3
+    rows split 2/1 give 6 split 3/3, and output row 3 reads row 1): this
+    rank's input rows come through the row exchange."""
+    if spatial is None or spatial.tracing:
+        y = F.interpolate(x, scale_factor=2.0, mode="nearest")
+        if spatial is not None:
+            spatial.record(x.shape[2], y.shape[2])
+        return y
+    h_in, h_out = spatial.next_op(x.shape[2])
+    windows = [(lo // 2, (hi - 1) // 2 + 1) for lo, hi in split_rows(h_out, spatial.ways)]
+    win = spatial.window(x, h_in, windows, 0.0)
+    lo, hi = spatial.own(h_out)
+    a = 2 * windows[spatial.index][0]
+    return F.interpolate(win, scale_factor=2.0, mode="nearest")[:, :, lo - a:hi - a]
 
 
 def resize_bilinear_half_pixel(x: torch.Tensor, out_hw: Tuple[int, int],
@@ -498,17 +567,43 @@ def resize_bilinear_half_pixel(x: torch.Tensor, out_hw: Tuple[int, int],
     return _resize_rows(x, h_in, h_out, out_hw[1], spatial, interp_matrix_half_pixel)
 
 
+def resize_half_pixel_to_rows(x: torch.Tensor, out_hw: Tuple[int, int],
+                              spatial: Optional[SpatialRows] = None) -> torch.Tensor:
+    """``resize_bilinear_half_pixel`` of a map that every rank of the model
+    group holds whole (PSPNet's pooled bins, ``adaptive_avg_pool``) to an
+    output whose rows the ranks split (NCHW).
+
+    With ``spatial``, ``out_hw``'s height is this rank's rows (the global
+    height from the trace) and the output is this rank's rows of
+    ``interp_matrix_half_pixel`` times the whole source, then the W matrix,
+    in x's dtype: no exchange. The source's gradient covers this rank's rows
+    only; the pool's backward sums it over the group."""
+    if spatial is None or spatial.tracing:
+        if spatial is not None:
+            spatial.record(out_hw[0], out_hw[0])
+        return resize_bilinear_half_pixel(x, out_hw)
+    h_out, _ = spatial.next_op(out_hw[0])
+    lo, hi = spatial.own(h_out)
+    wy = torch.from_numpy(interp_matrix_half_pixel(x.shape[2], h_out)[lo:hi])
+    wx = torch.from_numpy(interp_matrix_half_pixel(x.shape[3], out_hw[1]))
+    wy, wx = (m.to(device=x.device, dtype=x.dtype) for m in (wy, wx))
+    return torch.einsum("pw,ncow->ncop", wx, torch.einsum("oh,nchw->ncow", wy, x))
+
+
 class AddSkipDecoderBlock(nn.Module):
     """U-Net decoder block shared by ResUNet and DenseUNet: nearest-2x
     upsample, additive skip, 3x3 conv (no bias), BN, ReLU (NCHW)."""
 
     def __init__(self, chn_in: int, chn_out: int):
         super().__init__()
+        self.spatial: Optional[SpatialRows] = None  # set_spatial: the upsample's rows
         self.conv = Conv2d(chn_in, chn_out, 3, padding=1, bias=False)
         self.conv_bn = BatchNorm2d(chn_out)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        x = upsample_nearest_2x(x) + skip
+        # the skip has the upsampled map's height, so the same rows: the
+        # sum is row-local
+        x = upsample_nearest_2x(x, self.spatial) + skip
         return F.relu(self.conv_bn(self.conv(x)))
 
 
@@ -516,7 +611,15 @@ class AddSkipUNet(nn.Module):
     """The decoder and head of ResUNet and DenseUNet: four
     AddSkipDecoderBlocks (``decoder3`` .. ``decoder0``), then nearest-2x
     upsample, 3x3 conv to 64 (no bias), Dropout(0.3), BN, ReLU and a 1x1
-    classifier. Subclasses build the encoder and call ``decode``."""
+    classifier. Subclasses build the encoder, call ``begin`` of
+    ``self.spatial`` at the top of their forward, and call ``decode``."""
+
+    # every cross-row operation has a spatial form (parallel.spatial)
+    supports_spatial = True
+
+    def __init__(self):
+        super().__init__()
+        self.spatial: Optional[SpatialRows] = None  # set_spatial: H split over ranks
 
     def _build_decoder(self, chn_in: int, chn_outs: Sequence[int], num_classes: int):
         for name, chn_out in zip(("decoder3", "decoder2", "decoder1", "decoder0"), chn_outs):
@@ -532,6 +635,6 @@ class AddSkipUNet(nn.Module):
         logits at the input size."""
         for name, skip in zip(("decoder3", "decoder2", "decoder1", "decoder0"), skips):
             y = getattr(self, name)(y, skip)
-        y = self.final_dec_drop(self.final_dec_conv(upsample_nearest_2x(y)))
+        y = self.final_dec_drop(self.final_dec_conv(upsample_nearest_2x(y, self.spatial)))
         logits = self.final_clf(F.relu(self.final_dec_bn(y)))
         return logits.permute(0, 2, 3, 1)

@@ -35,8 +35,8 @@ from cutmix_seg_tpu_torch.models.common import (
     Conv2d,
     Dropout,
     SegModel,
+    adaptive_avg_pool,
     label_params_by_path,
-    mean_hw,
     resize_bilinear_half_pixel,
 )
 from cutmix_seg_tpu_torch.models.resnet import ResNetBackbone
@@ -68,7 +68,7 @@ class ASPP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         branches = [getattr(self, f"b{i}")(x) for i in range(self.n_dilated + 1)]
-        gap = self.pool(mean_hw(x, self.spatial))
+        gap = self.pool(adaptive_avg_pool(x, 1, self.spatial))
         branches.append(gap.expand(-1, -1, *x.shape[2:]))
         return self.dropout(self.project(torch.cat(branches, dim=1)))
 

@@ -13,6 +13,12 @@ from their tap widths (the JAX module fixes DenseNet-161's).
 Submodule names follow torchvision's densenet161 (``features.conv0``,
 ``features.denseblockN.denselayerM.norm1`` ..), so its state dict loads by
 name. Every conv takes flax's default initialiser (lecun_normal).
+
+Under ``parallel.spatial.set_spatial`` the image H axis is split over ranks
+(the 3x3 and 7x7 convs, the stem's floor pool, the transitions' average
+pools, the nearest upsamples and the dropout mask take and give this rank's
+rows; the 1x1 convs, the concatenations and the additive skips are
+row-local).
 """
 
 from __future__ import annotations
@@ -32,7 +38,9 @@ from cutmix_seg_tpu_torch.models.common import (
     BatchNorm2d,
     Conv2d,
     SegModel,
+    avg_pool_floor,
     label_params_by_path,
+    max_pool_floor,
 )
 
 
@@ -53,11 +61,12 @@ class DenseLayer(nn.Module):
 class Transition(nn.Module):
     def __init__(self, chn_in: int, chn_out: int):
         super().__init__()
+        self.spatial = None  # set_spatial: the pool's rows over ranks
         self.norm = BatchNorm2d(chn_in)
         self.conv = Conv2d(chn_in, chn_out, 1, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.avg_pool2d(self.conv(F.relu(self.norm(x))), 2, 2)
+        return avg_pool_floor(self.conv(F.relu(self.norm(x))), 2, 2, self.spatial)
 
 
 class DenseNetFeatures(nn.Module):
@@ -66,6 +75,7 @@ class DenseNetFeatures(nn.Module):
     def __init__(self, num_init_features: int = 96, growth_rate: int = 48,
                  block_config: Sequence[int] = (6, 12, 36, 24)):
         super().__init__()
+        self.spatial = None  # set_spatial: the stem pool's rows over ranks
         self.conv0 = Conv2d(3, num_init_features, 7, stride=2, padding=3, bias=False)
         self.norm0 = BatchNorm2d(num_init_features)
         chn = num_init_features
@@ -87,7 +97,7 @@ class DenseNetFeatures(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         taps = {"relu0": F.relu(self.norm0(self.conv0(x)))}
-        x = F.max_pool2d(taps["relu0"], 3, 2, 1)
+        x = max_pool_floor(taps["relu0"], 3, 2, 1, self.spatial)
         for i in range(1, self.n_blocks + 1):
             x = taps[f"denseblock{i}"] = getattr(self, f"denseblock{i}")(x)
             if i < self.n_blocks:
@@ -108,7 +118,10 @@ class DenseUNet(AddSkipUNet):
                                     tc["relu0"]), num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, H, W, 3) -> (N, H, W, num_classes) logits; H, W multiples of 32."""
+        """(N, H, W, 3) -> (N, H, W, num_classes) logits; H, W multiples of 32
+        (under ``set_spatial``: this rank's rows of each)."""
+        if self.spatial is not None:
+            self.spatial.begin(self, x)
         x = x.to(self.dtype or x.dtype).permute(0, 3, 1, 2)
         feats, taps = self.features(x)
         skips = (self.line0_conv(taps["denseblock3"]), taps["denseblock2"],

@@ -8,6 +8,12 @@ JAX module computes them), each 1x1 conv -> BN -> ReLU -> half-pixel
 bilinear resize back; concatenated with the features -> 3x3 conv-BN-ReLU
 (512) -> Dropout(0.1) -> 1x1 classifier; logits resized (half-pixel) to the
 input size. Head convs take He-normal init.
+
+Under ``parallel.spatial.set_spatial`` the image H axis is split over ranks:
+the backbone, the head's 3x3 conv, the dropout mask and the logits' resize
+take and give this rank's rows; each pyramid level is pooled from every
+rank's rows into a map the model group holds whole (its 1x1 conv, BN and
+ReLU run on it as they are), and resized from it to this rank's rows.
 """
 
 from __future__ import annotations
@@ -27,8 +33,10 @@ from cutmix_seg_tpu_torch.models.common import (
     Conv2d,
     Dropout,
     SegModel,
+    adaptive_avg_pool,
     label_params_by_path,
     resize_bilinear_half_pixel,
+    resize_half_pixel_to_rows,
 )
 from cutmix_seg_tpu_torch.models.resnet import ResNetBackbone
 
@@ -37,6 +45,7 @@ class PPMHead(nn.Module):
     def __init__(self, chn_in: int, num_classes: int,
                  pool_scales: Sequence[int] = (1, 2, 3, 6), features: int = 512):
         super().__init__()
+        self.spatial = None  # set_spatial: the pyramid's rows over ranks
         self.pool_scales = tuple(pool_scales)
         for i in range(len(pool_scales)):
             setattr(self, f"pool{i}_conv",
@@ -51,27 +60,34 @@ class PPMHead(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         branches = [x]
         for i, bins in enumerate(self.pool_scales):
-            y = getattr(self, f"pool{i}_conv")(F.adaptive_avg_pool2d(x, bins))
+            y = getattr(self, f"pool{i}_conv")(adaptive_avg_pool(x, bins, self.spatial))
             y = F.relu(getattr(self, f"pool{i}_bn")(y))
-            branches.append(resize_bilinear_half_pixel(y, tuple(x.shape[2:])))
+            branches.append(resize_half_pixel_to_rows(y, tuple(x.shape[2:]), self.spatial))
         y = F.relu(self.bn_last(self.conv_last(torch.cat(branches, dim=1))))
         return self.classifier(self.dropout(y))
 
 
 class PSPNet(nn.Module):
+    # every cross-row operation has a spatial form (parallel.spatial)
+    supports_spatial = True
+
     def __init__(self, num_classes: int, layers: Sequence[int] = (3, 4, 23, 3),
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dtype = dtype
+        self.spatial = None  # set_spatial: H split over ranks
         self.backbone = ResNetBackbone(layers, strides=(1, 2, 1, 1), dilations=(1, 1, 2, 4),
                                        style="torchvision")
         self.decoder = PPMHead(2048, num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, H, W, 3) -> (N, H, W, num_classes) logits."""
+        """(N, H, W, 3) -> (N, H, W, num_classes) logits (under
+        ``set_spatial``: this rank's rows of each)."""
+        if self.spatial is not None:
+            self.spatial.begin(self, x)
         in_hw = tuple(x.shape[1:3])
         feats = self.backbone.features(x.to(self.dtype or x.dtype).permute(0, 3, 1, 2))
-        logits = resize_bilinear_half_pixel(self.decoder(feats), in_hw)
+        logits = resize_bilinear_half_pixel(self.decoder(feats), in_hw, self.spatial)
         return logits.permute(0, 2, 3, 1)
 
 

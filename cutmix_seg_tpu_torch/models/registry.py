@@ -22,21 +22,6 @@ _ARCHS: Dict[str, Callable] = {
     "resnet101_deeplabv3plus_imagenet": deeplab3.resnet101_deeplabv3plus_imagenet,
     "resnet101_pspnet_imagenet": pspnet.resnet101_pspnet_imagenet,
 }
-_JAX_NAMES = frozenset(_ARCHS)
-# the names whose networks have spatial forms of all their cross-row
-# operations (parallel.spatial): the DeepLab v2 and v3/v3+ families
-SPATIAL = ("resnet101_deeplab_imagenet", "resnet101_deeplab_imagenet_mittal_std",
-           "resnet101_deeplab_coco", "resnet101_deeplabv3_imagenet", "resnet101_deeplabv3_coco",
-           "resnet101_deeplabv3plus_imagenet")
-
-
-def spatial_ported(name: str) -> bool:
-    """Whether ``--spatial_train`` / ``--eval_spatial`` over several ranks
-    run with this name: the DeepLab v2 and v3/v3+ names, and a name
-    registered outside the JAX package's, whose network
-    ``parallel.spatial.set_spatial`` checks when a step or eval first
-    splits it."""
-    return name in SPATIAL or name not in _JAX_NAMES
 
 
 def register(name: str):

@@ -6,6 +6,10 @@ BEFORE its ReLU (r2), layer1 (r4), layer2 (r8), layer3 (r16); layer4 passes
 through a 1x1 ``line0_conv`` (2048 -> 1024) into the first decoder block.
 Inputs must be multiples of 32 (block size). The encoder's convs are
 initialised N(0, 0.01), the decoder's by flax's default (lecun_normal).
+
+Under ``parallel.spatial.set_spatial`` the image H axis is split over ranks
+(the convs, the stem's floor pool, the nearest upsamples and the dropout
+mask take and give this rank's rows; the additive skips are row-local).
 """
 
 from __future__ import annotations
@@ -39,7 +43,10 @@ class ResUNet(AddSkipUNet):
         self._build_decoder(1024, (512, 256, 64, 64), num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, H, W, 3) -> (N, H, W, num_classes) logits; H, W multiples of 32."""
+        """(N, H, W, 3) -> (N, H, W, num_classes) logits; H, W multiples of 32
+        (under ``set_spatial``: this rank's rows of each)."""
+        if self.spatial is not None:
+            self.spatial.begin(self, x)
         taps = self.backbone.taps(x.to(self.dtype or x.dtype).permute(0, 3, 1, 2))
         skips = (taps["layer3"], taps["layer2"], taps["layer1"], taps["stem_prerelu"])
         return self.decode(self.line0_conv(taps["layer4"]), skips)

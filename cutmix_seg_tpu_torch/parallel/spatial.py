@@ -323,7 +323,9 @@ class SpatialRows:
 
     def record(self, h_in: int, h_out: int) -> None:
         if h_out < self.ways:
-            raise ValueError(f"a layer of {h_out} rows cannot split {self.ways} ways")
+            raise ValueError(f"spatial op {len(self._plan) + 1} (input of {h_in} rows): "
+                             f"a layer of {h_out} rows cannot split {self.ways} ways; "
+                             "a taller input gives every layer enough rows")
         self._plan.append((h_in, h_out))
 
     def next_op(self, local_h: int) -> Tuple[int, int]:
@@ -359,18 +361,20 @@ def rows_for(mesh: Mesh) -> SpatialRows:
 
 def check_supported(module: torch.nn.Module) -> None:
     """Raise, naming ROADMAP A6c, for a network without the spatial forms
-    of all its cross-row operations (all but DeepLab v2 and v3/v3+)."""
+    of all its cross-row operations (``supports_spatial``: every network
+    of the JAX package's architectures has it; one registered outside them
+    may not)."""
     if not getattr(module, "supports_spatial", False):
         raise NotImplementedError(
-            f"not ported yet: spatial partitioning of {type(module).__name__} (only "
-            f"DeepLab v2 and v3/v3+ have the spatial forms of their operations) is {A6C}")
+            f"spatial partitioning of {type(module).__name__}: it does not declare "
+            f"supports_spatial (the spatial forms of its cross-row operations; {A6C})")
 
 
 def set_spatial(module: torch.nn.Module, mesh: Optional[Mesh]) -> None:
     """Split the H axis of ``module``'s forward over ``mesh``'s model group
     (None, or a mesh of one model rank: the plain forward). Only networks
-    whose every cross-row operation has a spatial form take it (DeepLab v2,
-    v3 and v3+); another raises naming ROADMAP A6c."""
+    whose every cross-row operation has a spatial form take it (every
+    architecture of the JAX package); another raises naming ROADMAP A6c."""
     rows = rows_for(mesh) if mesh is not None and mesh.n_model > 1 else None
     if rows is not None:
         check_supported(module)

@@ -7,8 +7,8 @@ Evaluates a trained network (the trainer's final ``model.pt`` from
 eval pass (``train.common.evaluate``: integer confusion matrices, the
 reference's IoU, 2-class hole filling), on the GPU unless given
 ``--device cpu``. Under torchrun the ranks split each eval batch as the
-trainers do; ``--eval_spatial`` over several ranks splits rows too (the
-DeepLab v2 and v3/v3+ families only, as in the trainers).
+trainers do; ``--eval_spatial`` over several ranks splits rows too, on
+every architecture, as in the trainers.
 
     python -m cutmix_seg_tpu_torch.tools.evaluate_model \
         --dataset pascal_aug --arch resnet101_deeplab_imagenet \

@@ -91,15 +91,11 @@ def common_options(with_geom_pair_opts: bool = False):
                      help="JAX-package extra: eval with the image H axis "
                           "split over the ranks (over the --spatial_train "
                           "ranks when set); with one process the plain "
-                          "eval. Over several ranks it runs on the DeepLab "
-                          "v2, v3 and v3+ archs; other archs are refused "
-                          "(ROADMAP A6c)"),
+                          "eval"),
         click.option("--spatial_train", type=int, default=1,
                      help="JAX-package extra: split each crop's H axis over "
                           "N ranks in training (batch over the world / N "
-                          "others); crop height and world must divide by N. "
-                          "Runs for every trainer on the DeepLab v2, v3 and "
-                          "v3+ archs; other archs are refused (ROADMAP A6c)"),
+                          "others); crop height and world must divide by N"),
         click.option("--data_on_device", type=click.Choice(
             ["auto", "on", "off"]), default="auto",
             help="JAX-package extra: keep the training canvases in device "

@@ -10,7 +10,7 @@ batch is made from the host streams.
 
 Several GPUs (``torchrun --nproc_per_node=N``; ``parallel.mesh``): rank r is
 JAX process r with one device. With ``--spatial_train S`` (``parallel.spatial``;
-every step, on DeepLab v2, v3 and v3+) the N ranks are JAX's 2-D mesh of N / S data
+every step, on every architecture) the N ranks are JAX's 2-D mesh of N / S data
 indices by S model ranks, model minor: rank r's data index is r // S, and the
 S ranks of a data index split each image's rows (S = 1: every rank is a data
 index). The global batch is ``batch_size`` times the data indices; data
@@ -39,10 +39,11 @@ trainer.augment, trainer.step), so a ``--profile_dir`` trace attributes the
 host's time.
 
 The JAX trainer's own refusals (a crop height that S does not divide, a
-mismatched ``--n_devices``, a world that S does not divide) and the options
-the port does not run yet (spatial partitioning of the other architectures,
-naming ROADMAP A6c) raise at setup, before any data loads
-(``check_ported``).
+mismatched ``--n_devices``, a world that S does not divide) raise at setup,
+before any data loads (``check_ported``). A network registered outside the
+JAX package's names without the spatial forms of its operations raises,
+naming ROADMAP A6c, when a step or eval first splits it
+(``parallel.spatial.set_spatial``).
 """
 
 from __future__ import annotations
@@ -67,7 +68,6 @@ from cutmix_seg_tpu_torch.data.loader import HostBatchBuilder, train_stream
 from cutmix_seg_tpu_torch.models import registry
 from cutmix_seg_tpu_torch.ops.iou import EvaluatorIoU
 from cutmix_seg_tpu_torch.parallel import mesh as mesh_mod
-from cutmix_seg_tpu_torch.parallel import spatial
 from cutmix_seg_tpu_torch.semisup.stepcore import ConsistencyCommon, accum_zero_metrics
 from cutmix_seg_tpu_torch.train import common
 from cutmix_seg_tpu_torch.utils.device import resolve_device
@@ -97,9 +97,9 @@ class AlgorithmSpec:
 
 def check_ported(p: dict) -> int:
     """Refuse, before any data loads, what the JAX trainer refuses at this
-    process group's world size and then the options the port does not run
-    yet (naming their ROADMAP item); returns the H-split ways S of
-    --spatial_train."""
+    process group's world size; returns the H-split ways S of
+    --spatial_train. Every ``--arch`` of the JAX package runs with
+    ``--spatial_train S`` and with ``--eval_spatial`` over several ranks."""
     registry.get(p["arch"])  # an unknown name raises KeyError
     world = mesh_mod.world()
     S = int(p.get("spatial_train", 1) or 1)
@@ -114,14 +114,6 @@ def check_ported(p: dict) -> int:
         raise ValueError(
             f"n_model={S} does not divide the device count ({world}); pass n_data "
             "explicitly to use a subset")
-    spatial_eval = p.get("eval_spatial", False) and world > 1
-    if S > 1 or spatial_eval:
-        what = f"--spatial_train {S}" if S > 1 else "--eval_spatial over several ranks"
-        if not registry.spatial_ported(p["arch"]):
-            raise NotImplementedError(
-                f"not ported yet: {what} with --arch {p['arch']} (spatial forms of "
-                f"its operations; only the DeepLab v2 and v3/v3+ families have them) "
-                f"is {spatial.A6C}")
     return S
 
 

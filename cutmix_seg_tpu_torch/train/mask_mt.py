@@ -8,8 +8,8 @@ reference, flags catalogued in CMDLINE_OPTIONS.md). The loop lives in
 ``train.engine``; the step is ``semisup.mask_mt``, whose CutMix blend is the
 CUDA kernel ``csrc/cutmix_blend.cu``. Over several GPUs (``torchrun
 --nproc_per_node=N``) it runs data-parallel, and with ``--spatial_train S``
-on the DeepLab v2 and v3/v3+ families each image's rows split over S ranks. Options the
-port does not run yet are refused at setup (``engine.check_ported``).
+each image's rows split over S ranks. The JAX trainer's refusals raise at
+setup (``engine.check_ported``).
 """
 
 from __future__ import annotations

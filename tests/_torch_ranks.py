@@ -34,7 +34,7 @@ from torch.nn import functional as F
 
 from cutmix_seg_tpu_torch.core import train_state as tts
 from cutmix_seg_tpu_torch.models import common as tcommon
-from cutmix_seg_tpu_torch.models import deeplab3
+from cutmix_seg_tpu_torch.models import deeplab3, denseunet, pspnet, resunet
 from cutmix_seg_tpu_torch.models.deeplab2 import DeepLab2, _param_label
 from cutmix_seg_tpu_torch.parallel.mesh import Mesh, all_reduce_grads, local_rows
 from cutmix_seg_tpu_torch.semisup import aug_cons, ict, mask_mt, vat
@@ -135,6 +135,13 @@ MODELS = {
     "tinybn": lambda: tcommon.SegModel(
         "tiny", TinyBN(), np.zeros(3), np.ones(3), (1, 1),
         lambda m: tcommon.label_params_by_path(m, [("conv0", "pretrained")])),
+    # the other families at tiny depth (tests/test_torch_spatial_families.py)
+    "pspnet": lambda: tcommon.SegModel("tiny", pspnet.PSPNet(C, layers=(1, 1, 1, 1)),
+                                       np.zeros(3), np.ones(3), (1, 1), pspnet._param_label),
+    "resunet": lambda: tcommon.SegModel("tiny", resunet.ResUNet(C, layers=(1, 1, 1, 1)),
+                                        np.zeros(3), np.ones(3), (32, 32),
+                                        resunet._param_label_pretrained),
+    "denseunet": lambda: tiny_denseunet(C),
 }
 STEPS = {  # algorithm: (config class, step factory)
     "mask_mt": (mask_mt.MaskConsistencyConfig, mask_mt.make_mask_mt_step),
@@ -285,6 +292,14 @@ def tiny_deeplab(num_classes, dtype=None, pretrained=True):
                             np.zeros(3), np.ones(3), (1, 1), _param_label)
 
 
+def tiny_denseunet(num_classes, dtype=None, pretrained=True):
+    """DenseUNet with DenseNet block config (2, 2, 2, 2): taps of 96, 192,
+    192 and 192 channels, a decoder of 192, 192, 96 and 96."""
+    return tcommon.SegModel("tiny", denseunet.DenseUNet(num_classes, block_config=(2, 2, 2, 2),
+                                                        dtype=dtype),
+                            None, None, (32, 32), denseunet._param_label_pretrained)
+
+
 def tiny_v3plus(num_classes, dtype=None, pretrained=True):
     return tcommon.SegModel("tiny", deeplab3.DeepLabV3Plus(num_classes, layers=(1, 1, 1, 1),
                                                           dtype=dtype),
@@ -300,9 +315,12 @@ def trainer_env(task) -> None:
 
     sources.PascalVOCDataSource.canvas_hw = (48, 48)
     sources.CityscapesDataSource.canvas_hw = task.get("city_canvas", (32, 64))
+    sources.ISIC2017DataSource.canvas_hw = task.get("isic_canvas", (48, 48))
     registry.register(task["arch"])(tiny_deeplab)
     if "arch_v3plus" in task:
         registry.register(task["arch_v3plus"])(tiny_v3plus)
+    if "arch_denseunet" in task:
+        registry.register(task["arch_denseunet"])(tiny_denseunet)
 
 
 class WriteCounter:
@@ -432,7 +450,7 @@ class OpNet(torch.nn.Module):
     def __init__(self, op, h, **kw):
         super().__init__()
         self.spatial, self.op, self.h, self.kw = None, op, h, kw
-        if op in ("conv", "pool_bn"):
+        if op in ("conv", "pool_bn", "ppm_bn"):
             gen = torch.Generator().manual_seed(0)
             self.conv = tcommon.Conv2d(kw["cin"], kw["cout"], kw["k"], stride=kw["s"],
                                        padding=kw["p"], dilation=kw["d"], bias=op == "conv")
@@ -440,7 +458,7 @@ class OpNet(torch.nn.Module):
                 self.conv.weight.normal_(generator=gen)
                 if op == "conv":
                     self.conv.bias.normal_(generator=gen)
-        if op == "pool_bn":  # ASPP's image pooling: mean, 1x1 conv (no bias), training BN
+        if op in ("pool_bn", "ppm_bn"):  # a pooled map: 1x1 conv (no bias), training BN
             self.bn = tcommon.BatchNorm2d(kw["cout"])
             self.bn.freeze = False
             with torch.no_grad():
@@ -458,10 +476,23 @@ class OpNet(torch.nn.Module):
         if self.op == "pool_floor":
             return tcommon.max_pool_floor(xc, 3, 2, 1, spatial=self.spatial).permute(0, 2, 3, 1)
         if self.op == "mean":  # the image pooling, spread back over the rows
-            return tcommon.mean_hw(xc, self.spatial).expand(xc.shape).permute(0, 2, 3, 1)
+            y = tcommon.adaptive_avg_pool(xc, 1, self.spatial)
+            return y.expand(xc.shape).permute(0, 2, 3, 1)
         if self.op == "pool_bn":
-            y = F.relu(self.bn(self.conv(tcommon.mean_hw(xc, self.spatial))))
+            y = F.relu(self.bn(self.conv(tcommon.adaptive_avg_pool(xc, 1, self.spatial))))
             return y.expand(-1, -1, *xc.shape[2:]).permute(0, 2, 3, 1)
+        if self.op == "nearest":
+            return tcommon.upsample_nearest_2x(xc, self.spatial).permute(0, 2, 3, 1)
+        if self.op == "avg":
+            return tcommon.avg_pool_floor(xc, 2, 2, self.spatial).permute(0, 2, 3, 1)
+        if self.op == "bins":  # the pooled map, whole on every rank
+            return tcommon.adaptive_avg_pool(xc, self.kw["bins"], self.spatial).permute(0, 2, 3, 1)
+        if self.op in ("ppm", "ppm_bn"):  # PSPNet's pyramid level, back to the rows
+            y = tcommon.adaptive_avg_pool(xc, self.kw["bins"], self.spatial)
+            if self.op == "ppm_bn":
+                y = F.relu(self.bn(self.conv(y)))
+            y = tcommon.resize_half_pixel_to_rows(y, tuple(xc.shape[2:]), self.spatial)
+            return y.permute(0, 2, 3, 1)
         if self.op == "half":  # (split: the output height comes from the trace)
             y = tcommon.resize_bilinear_half_pixel(xc, self.kw["out"], self.spatial)
             return y.permute(0, 2, 3, 1)
@@ -510,13 +541,43 @@ SPATIAL_OPS = {  # name: (op, global input height, options); inputs (2, h, 11, C
 }
 
 
+# the cross-row operations of PSPNet, ResUNet and DenseUNet
+# (tests/test_torch_spatial_families.py): the nearest upsample where an
+# output range starts on an odd row (3 -> 6, 7 -> 14 at S = 2), the 2x2
+# average pool where a window straddles the split (6 -> 3, 14 -> 7), the
+# adaptive pool into PSPNet's bins (overlapping, and 6 bins on 5 rows),
+# alone and resized back to the rows from the whole pooled map (2 -> 5,
+# 6 -> 5), and into a training BN
+FAMILY_OPS = {
+    "nearest_3_to_6": ("nearest", 3, {}),
+    "nearest_7_to_14": ("nearest", 7, {}),
+    "nearest_9_to_18": ("nearest", 9, {}),
+    "avg_6_to_3": ("avg", 6, {}),
+    "avg_14_to_7": ("avg", 14, {}),
+    "avg_15_to_7": ("avg", 15, {}),
+    "bins1_5": ("bins", 5, dict(bins=1)),
+    "bins2_5": ("bins", 5, dict(bins=2)),
+    "bins3_5": ("bins", 5, dict(bins=3)),
+    "bins6_5": ("bins", 5, dict(bins=6)),
+    "bins6_32": ("bins", 32, dict(bins=6)),
+    "ppm1_5": ("ppm", 5, dict(bins=1)),
+    "ppm2_5": ("ppm", 5, dict(bins=2)),
+    "ppm3_9": ("ppm", 9, dict(bins=3)),
+    "ppm6_5": ("ppm", 5, dict(bins=6)),
+    "ppm_bn2_5": ("ppm_bn", 5, dict(_conv(3, 4, 1, 1, 0, 1), bins=2, n=4)),
+    "ppm_bn6_5": ("ppm_bn", 5, dict(_conv(3, 4, 1, 1, 0, 1), bins=6, n=4)),
+}
+
+
 def spatial_op_run(name: str, mesh) -> dict:
-    """One op of SPATIAL_OPS on its seeded global input: alone (mesh None)
-    on the whole input, else on this rank's rows of it. Returns the output
-    rows, the input gradient of sum(out * g) (g seeded, of the output's
-    shape) and the conv's weight and bias gradients."""
-    op, h, kw = SPATIAL_OPS[name]
-    rng = np.random.RandomState(sorted(SPATIAL_OPS).index(name))
+    """One op of SPATIAL_OPS or FAMILY_OPS on its seeded global input:
+    alone (mesh None) on the whole input, else on this rank's rows of it.
+    Returns the output rows, the input gradient of sum(out * g) (g seeded,
+    of the output's shape; a pooled map's output is whole on every rank,
+    which then takes 1 / S of g) and the conv's weight and bias gradients."""
+    ops = SPATIAL_OPS if name in SPATIAL_OPS else FAMILY_OPS
+    op, h, kw = ops[name]
+    rng = np.random.RandomState(sorted(ops).index(name))
     x = torch.from_numpy(rng.randn(kw.get("n", 2), h, 11, kw.get("cin", 3)).astype(np.float32))
     net = OpNet(op, h, **kw)
     tcommon.set_bn_mesh(net, mesh)
@@ -527,14 +588,15 @@ def spatial_op_run(name: str, mesh) -> dict:
         from cutmix_seg_tpu_torch.parallel import spatial
 
         spatial.set_spatial(net, mesh)
-        x, g = spatial.slice_h(x, mesh), spatial.slice_h(g, mesh)
+        x = spatial.slice_h(x, mesh)
+        g = g / mesh.n_model if op == "bins" else spatial.slice_h(g, mesh)
     x = x.clone().requires_grad_(True)
     out = net(x)
     (out * g).sum().backward()
     res = {"out": out.detach(), "x_grad": x.grad}
     if op == "conv":
         res.update(w_grad=net.conv.weight.grad, b_grad=net.conv.bias.grad)
-    if op == "pool_bn":
+    if op in ("pool_bn", "ppm_bn"):
         res.update(w_grad=net.conv.weight.grad, bn_w_grad=net.bn.weight.grad,
                    bn_b_grad=net.bn.bias.grad, running_var=net.bn.running_var.clone())
     return res
@@ -625,8 +687,60 @@ def spatial_model_run(task, mesh) -> dict:
     return out
 
 
+def families_model_run(models: dict, mesh) -> dict:
+    """Per tiny family of ``models`` (name -> {"state_dict", "x",
+    "batches", "pad_h"}) in eval mode, alone (mesh None) or split over
+    ``mesh``'s ranks (``--eval_spatial``): the logits of x and each raw
+    batch's confusion matrix, the batch's H padded to ``pad_h`` rows."""
+    from cutmix_seg_tpu_torch.ops.iou import confusion_matrix
+    from cutmix_seg_tpu_torch.parallel import spatial
+    from cutmix_seg_tpu_torch.train import common
+
+    sp_mesh, split = common.eval_layout(mesh, True)
+    dev = torch.device("cpu")
+    out = {}
+    for name, m in models.items():
+        net = MODELS[name]().module
+        net.load_state_dict(m["state_dict"])
+        net.eval()
+        x = torch.from_numpy(m["x"])
+        with torch.no_grad():
+            if split:
+                spatial.set_spatial(net, sp_mesh)
+                x = spatial.slice_h(x, sp_mesh)
+            got = {"logits": net(x), "cms": []}
+        for batch in m["batches"]:
+            batch = spatial.pad_batch_h(batch, m["pad_h"])
+            pred, y = common.predict_rows(net, batch, m["mean"], m["std"], dev, sp_mesh, split)
+            cm = confusion_matrix(pred, y, C)
+            if mesh is not None:
+                dist.all_reduce(cm)
+            got["cms"].append(cm)
+        out[name] = got
+    return out
+
+
 def task_spatial_ops(task, mesh):
     return {name: spatial_op_run(name, mesh) for name in SPATIAL_OPS}
+
+
+def task_families(task, mesh):
+    """tests/test_torch_spatial_families.py's work at one world size, in
+    one spawn: ``task['ops']`` of FAMILY_OPS, and where given the tiny
+    families' forwards and evals (``task['models']``), step cases
+    (``task['cases']``) and trainer runs (``task['trainer']``, a
+    ``task_trainer`` task); with ``task['alone']`` (one rank) the ops,
+    forwards and steps without a mesh: the port alone."""
+    if task.get("alone"):
+        mesh = None
+    out = {"ops": {name: spatial_op_run(name, mesh) for name in task["ops"]}}
+    if "models" in task:
+        out["models"] = families_model_run(task["models"], mesh)
+    if "cases" in task:
+        out["steps"] = {name: run_steps(case, mesh) for name, case in task["cases"].items()}
+    if "trainer" in task:
+        out["trainer"] = task_trainer(task["trainer"], mesh)
+    return out
 
 
 def task_spatial_model(task, mesh):
@@ -675,7 +789,8 @@ def task_stall(task, mesh):
 
 TASKS = {"steps": task_steps, "stall": task_stall, "collectives": task_collectives, "bn_grad": task_bn_grad,
          "trainer": task_trainer, "streams": task_streams, "multiseed": task_multiseed,
-         "spatial_ops": task_spatial_ops, "spatial_model": task_spatial_model}
+         "spatial_ops": task_spatial_ops, "spatial_model": task_spatial_model,
+         "families": task_families}
 
 
 def main(argv) -> None:

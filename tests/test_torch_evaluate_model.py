@@ -154,15 +154,35 @@ def test_usage_errors(voc, tmp_path):
     assert res.exit_code == 2 and "no test split" in res.output
 
 
-def test_refusals_follow_the_trainers(voc, monkeypatch):
+def test_refusals_follow_the_trainers(voc, tmp_path, monkeypatch):
+    """The trainers' refusals before the data loads; over several ranks
+    --eval_spatial takes every JAX arch (PSPNet here: the tool reaches its
+    data), and a network registered outside them without
+    ``supports_spatial`` is refused, naming ROADMAP A6c, where the eval
+    first splits it."""
     with pytest.raises(ValueError, match="--n_devices 2"):
         _port_eval(["--model_path", "unused.pt", "--n_devices", "2"])
-    # over several ranks, --eval_spatial with an arch outside DeepLab v2
     monkeypatch.setattr(tmesh, "world", lambda: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6c"):
-        ttool.main.main(["--dataset", "pascal", "--arch", "resnet101_pspnet_imagenet",
-                         "--model_path", "unused.pt", "--eval_spatial", "--device", "cpu"],
-                        standalone_mode=False)
+
+    def no_data(*a, **k):
+        raise AssertionError("reached the data")
+
+    with monkeypatch.context() as mp:
+        mp.setattr(ttool.datasets, "load_dataset", no_data)
+        with pytest.raises(AssertionError, match="reached the data"):
+            ttool.main.main(["--dataset", "pascal", "--arch", "resnet101_pspnet_imagenet",
+                             "--model_path", "unused.pt", "--eval_spatial", "--device", "cpu"],
+                            standalone_mode=False)
+    no_spatial = type("NoSpatialDeepLab2", (DeepLab2,), {"supports_spatial": False})
+    monkeypatch.setitem(treg._ARCHS, ARCH, lambda num_classes, dtype=None, pretrained=True:
+                        SegModel(ARCH, no_spatial(num_classes, layers=LAYERS, dtype=dtype), MEAN,
+                                 STD, (1, 1), _param_label))
+    path = str(tmp_path / "model.pt")
+    torch.save(DeepLab2(NUM_CLASSES, layers=LAYERS).state_dict(), path)
+    # rank 0 of two (no process group: the refusal comes before any collective)
+    monkeypatch.setattr(tmesh, "data_mesh", lambda n_model=1: tmesh.Mesh(2, 0, n_model))
+    with pytest.raises(NotImplementedError, match="NoSpatialDeepLab2.*ROADMAP A6c"):
+        _port_eval(["--model_path", path, "--eval_spatial"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ttool.main.main(COMMON + ["--model_path", "unused.pt"], standalone_mode=False)

@@ -174,9 +174,15 @@ def test_interp_matrix_matches_jax():
 
 
 def test_set_spatial_refuses_networks_without_spatial_forms():
+    """TinyBN (no ``supports_spatial``) is refused, naming ROADMAP A6c;
+    every family of the JAX package's archs is taken (tiny here: the
+    attribute is the class's)."""
     net = ranks.TinyBN()
     spatial.set_spatial(net, None)  # the plain forward is always fine
     spatial.set_spatial(net, Mesh(2, 0, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6c"):
+    with pytest.raises(NotImplementedError, match="TinyBN.*ROADMAP A6c"):
         spatial.check_supported(net)
-    spatial.check_supported(ranks.MODELS["deeplab2"]().module)
+    with pytest.raises(NotImplementedError, match="ROADMAP A6c"):
+        spatial.set_spatial(net, Mesh(2, 0, 2))
+    for family in ("deeplab2", "deeplabv3", "deeplabv3plus", "pspnet", "resunet", "denseunet"):
+        spatial.check_supported(ranks.MODELS[family]().module)

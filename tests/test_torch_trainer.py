@@ -147,17 +147,20 @@ def test_checkpoint_restores_the_saved_state(voc, tmp_path):
             assert torch.equal(restored[part][k], v), (part, k)
 
 
-REFUSED = {  # case: (overrides, world size, the exception, its message)
+# case: (overrides, world size, the exception, its message); exception None:
+# the option is accepted, so the run gets as far as loading its data (which
+# every refusal precedes) and raises the test's sentinel there (NO_DATA)
+REFUSED = {
     # --n_devices must be the world size (one GPU per process)
     "n_devices": (dict(n_devices=2), 1, ValueError, "--n_devices 2 does not match"),
-    # spatial eval over several ranks runs on DeepLab v2 and v3/v3+ only
-    "eval_spatial": (dict(eval_spatial=True, arch="resnet50unet_imagenet"), 2,
-                     NotImplementedError, "ROADMAP A6c"),
+    # spatial eval over several ranks runs on every JAX arch (a ResUNet here)
+    "eval_spatial": (dict(eval_spatial=True, arch="resnet50unet_imagenet"), 2, None, None),
     # the world must split into S-rank groups (JAX make_mesh's message)
     "spatial_train": (dict(spatial_train=2), 1, ValueError,
                       "n_model=2 does not divide the device count"),
+    # and so does --spatial_train (PSPNet here)
     "spatial_train_arch": (dict(spatial_train=2, arch="resnet101_pspnet_imagenet"), 2,
-                           NotImplementedError, "ROADMAP A6c"),
+                           None, None),
     # the crop height must split S ways (the JAX trainer's message)
     "spatial_train_crop": (dict(spatial_train=2, crop_size="33,32"), 2, ValueError,
                            "requires the crop height"),
@@ -166,13 +169,25 @@ REFUSED = {  # case: (overrides, world size, the exception, its message)
 }
 
 
+NO_DATA = "data loaded before the option was refused"
+
+
+def refusal_of(case):
+    """REFUSED[case]'s (overrides, world, exception, message); an accepted
+    option's exception is the data load's sentinel."""
+    overrides, world, exc, match = REFUSED[case]
+    return (overrides, world) + ((exc, match) if exc is not None else (AssertionError, NO_DATA))
+
+
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_left_out_options_raise_before_data_loads(case, tmp_path, monkeypatch):
+    """Each refused option raises before any data loads; each accepted one
+    (exception None) reaches the data."""
     def no_data(*a, **k):
-        raise AssertionError("data loaded before the option was refused")
+        raise AssertionError(NO_DATA)
 
     monkeypatch.setattr(engine.datasets, "load_dataset", no_data)
-    overrides, world, exc, match = REFUSED[case]
+    overrides, world, exc, match = refusal_of(case)
     monkeypatch.setattr(mesh, "world", lambda: world)
     with pytest.raises(exc, match=match):
         _submit(tmp_path / "results", case, **overrides)

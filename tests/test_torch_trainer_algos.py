@@ -20,6 +20,7 @@ from cutmix_seg_tpu.data import datasets as jdatasets
 from cutmix_seg_tpu.data import loader as jloader
 from cutmix_seg_tpu.data import settings as jsettings
 from cutmix_seg_tpu.data import sources as jsources
+from cutmix_seg_tpu.models import registry as jregistry
 from cutmix_seg_tpu.train import aug_mt as jaug_mt
 from cutmix_seg_tpu.train import engine as jengine
 from cutmix_seg_tpu.train import ict as jict
@@ -27,10 +28,14 @@ from cutmix_seg_tpu.train import vat_mt as jvat_mt
 from cutmix_seg_tpu_torch.aug.params import GeomConfig
 from cutmix_seg_tpu_torch.core import job
 from cutmix_seg_tpu_torch.data import datasets, loader
-from cutmix_seg_tpu_torch.parallel import mesh
+from cutmix_seg_tpu_torch.models import registry
+from cutmix_seg_tpu_torch.models.common import SegModel
+from cutmix_seg_tpu_torch.models.deeplab2 import DeepLab2, _param_label
+from cutmix_seg_tpu_torch.parallel import mesh, spatial
 from cutmix_seg_tpu_torch.train import aug_mt, engine, ict, vat_mt
 from tests.test_cli_parity import _AUG_MT, _ICT, _VAT_MT
-from tests.test_torch_trainer import REFUSED, TINY_ARCH, _options, voc  # noqa: F401
+from tests.test_torch_trainer import NO_DATA, REFUSED, TINY_ARCH, _options, refusal_of
+from tests.test_torch_trainer import voc  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -166,10 +171,10 @@ def test_aug_pair_host_batch_bit_equal_to_jax(both_sources, mode, free):
 @pytest.mark.parametrize("name", sorted(TRAINERS))
 def test_left_out_options_raise_before_data_loads(name, case, tmp_path, monkeypatch):
     def no_data(*a, **k):
-        raise AssertionError("data loaded before the option was refused")
+        raise AssertionError(NO_DATA)
 
     monkeypatch.setattr(engine.datasets, "load_dataset", no_data)
-    overrides, world, exc, match = REFUSED[case]
+    overrides, world, exc, match = refusal_of(case)
     monkeypatch.setattr(mesh, "world", lambda: world)
     with pytest.raises(exc, match=match):
         _submit(name, tmp_path / "results", case, **overrides)
@@ -177,15 +182,27 @@ def test_left_out_options_raise_before_data_loads(name, case, tmp_path, monkeypa
 
 @pytest.mark.parametrize("name", sorted(TRAINERS))
 def test_spatial_train_refused_for_the_algorithm(name, monkeypatch):
-    """--spatial_train 2 at world 2: every step has a spatial form, so
-    ``check_ported`` accepts each algorithm on DeepLab v2 (and v3+); it
-    still refuses an architecture without the spatial forms of its
-    operations (DenseUNet-161, ROADMAP A6c)."""
+    """--spatial_train 2 at world 2: every step has a spatial form and every
+    JAX arch's network the spatial forms of its operations, so
+    ``check_ported`` accepts each algorithm with each of the 11 names (and
+    with --eval_spatial). A network registered outside them without
+    ``supports_spatial`` passes ``check_ported`` (its class is not known
+    before it is built) and is refused, naming ROADMAP A6c, where its step
+    first splits it (``set_spatial``)."""
     monkeypatch.setattr(mesh, "world", lambda: 2)
-    for arch in ("resnet101_deeplab_imagenet", "resnet101_deeplabv3plus_imagenet"):
+    assert len(jregistry.names()) == 11
+    for arch in jregistry.names():
         assert engine.check_ported(_params(name, arch=arch, spatial_train=2)) == 2
-    with pytest.raises(NotImplementedError, match="densenet161unet .* ROADMAP A6c"):
-        engine.check_ported(_params(name, arch="densenet161unet", spatial_train=2))
+        assert engine.check_ported(_params(name, arch=arch, eval_spatial=True)) == 1
+    no_spatial = type("NoSpatialDeepLab2", (DeepLab2,), {"supports_spatial": False})
+    monkeypatch.setitem(registry._ARCHS, "no_spatial_forms_test", lambda num_classes, **kw:
+                        SegModel("no_spatial_forms_test", no_spatial(num_classes, (1, 1, 1, 1)),
+                                 None, None, (1, 1), _param_label))
+    assert engine.check_ported(_params(name, arch="no_spatial_forms_test",
+                                       spatial_train=2)) == 2
+    net = registry.get("no_spatial_forms_test")(4).module
+    with pytest.raises(NotImplementedError, match="NoSpatialDeepLab2.*ROADMAP A6c"):
+        spatial.set_spatial(net, mesh.Mesh(2, 0, 2))
 
 
 @pytest.mark.parametrize("name", sorted(TRAINERS))
