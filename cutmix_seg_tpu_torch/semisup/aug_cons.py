@@ -36,6 +36,7 @@ import dataclasses
 
 import torch
 from torch.nn import functional as F
+from torch.profiler import record_function
 
 from cutmix_seg_tpu_torch.core.train_state import TrainState
 from cutmix_seg_tpu_torch.ops.resample import grid_sample_affine
@@ -93,11 +94,12 @@ def make_aug_cons_step(model, opt, cfg: AugConsConfig, mesh=None):
             if use_cons:
                 x1 = c["ux1"]
                 hw = tuple(c["um0"].shape[1:3])  # the full crop
-                logits_tea = teacher_forward(cfg, teacher, c["ux0"]).float()
-                with torch.no_grad():
+                with record_function("step.teacher"), torch.no_grad():
+                    logits_tea = teacher_forward(cfg, teacher, c["ux0"]).float()
                     if spatial:
                         logits_tea = gather_h(logits_tea, hw[0], mesh)
                     prob_tea = F.softmax(logits_tea, dim=-1)
+                with record_function("step.perturb"), torch.no_grad():
                     logits_tea_in_stu = rows(grid_sample_affine(logits_tea, c["xf"], hw))
                     prob_tea_in_stu = rows(grid_sample_affine(prob_tea, c["xf"], hw))
                     um0_in_stu = rows(grid_sample_affine(c["um0"], c["xf"], hw))

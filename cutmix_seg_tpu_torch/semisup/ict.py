@@ -36,6 +36,7 @@ from typing import Optional
 
 import torch
 from torch.nn import functional as F
+from torch.profiler import record_function
 
 from cutmix_seg_tpu_torch.core.train_state import TrainState
 from cutmix_seg_tpu_torch.parallel.mesh import global_rows, local_rows
@@ -105,7 +106,7 @@ def make_ict_step(model, opt, cfg: ICTConfig, mesh=None):
         teacher = prepare_nets(cfg, state, mesh)
         full = {"sup_x": batch["sup_x"], "sup_y": batch["sup_y"]}
         if use_cons:
-            with torch.no_grad():
+            with record_function("step.perturb"), torch.no_grad():
                 ux0, ux1 = batch["ux0_stu"], batch["ux1_stu"]
                 n = ux0.shape[0]
                 if lam is None:
@@ -123,7 +124,7 @@ def make_ict_step(model, opt, cfg: ICTConfig, mesh=None):
         def one_chunk(c):
             conf_px = per_px_fn = None
             if use_cons:
-                with torch.no_grad():
+                with record_function("step.teacher"), torch.no_grad():
                     tea0, tea1 = (t.float() for t in teacher_pair(
                         cfg, teacher, c["ux0_tea"], c["ux1_tea"]))
                     p0, p1 = F.softmax(tea0, dim=-1), F.softmax(tea1, dim=-1)

@@ -40,6 +40,7 @@ import dataclasses
 
 import torch
 from torch.nn import functional as F
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from cutmix_seg_tpu_torch.core.train_state import TrainState
@@ -150,15 +151,16 @@ def make_mask_mt_step(model, opt, cfg: MaskConsistencyConfig, mesh=None):
         full = {"sup_x": batch["sup_x"], "sup_y": batch["sup_y"]}
         # ---- mixing geometry over the whole batch, outside the gradient ----
         if use_cons:
-            with torch.no_grad():
+            with record_function("step.perturb"), torch.no_grad():
                 x_stu_cons, m, loss_mask = _mix_geometry(cfg, batch, state.generator, rects, mesh)
+                loss_mask = loss_mask.float()
             if K > 1 and batch["sup_x"].shape[1:] != x_stu_cons.shape[1:]:
                 raise ValueError(
                     "grad_accum > 1 requires matching supervised/"
                     f"unsupervised crop shapes, got {tuple(batch['sup_x'].shape[1:])}"
                     f" vs {tuple(x_stu_cons.shape[1:])}")
             full.update({k: batch[k] for k in tea_keys})
-            full.update(x_cons=x_stu_cons, m=m, loss_mask=loss_mask.float())
+            full.update(x_cons=x_stu_cons, m=m, loss_mask=loss_mask)
         if spatial:
             # the forwards, the blends and the losses run on this rank's rows
             full = slice_batch_h(full, mesh)
@@ -167,7 +169,7 @@ def make_mask_mt_step(model, opt, cfg: MaskConsistencyConfig, mesh=None):
             # ---- teacher: all outside the gradient ----
             conf_px = per_px_fn = None
             if use_cons:
-                with torch.no_grad():
+                with record_function("step.teacher"), torch.no_grad():
                     if cfg.mask_mode == "mix":
                         tea0, tea1 = teacher_pair(cfg, teacher, c["ux0_tea"], c["ux1_tea"])
                         m_l = c["m"].to(ldt)

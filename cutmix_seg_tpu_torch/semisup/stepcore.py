@@ -50,6 +50,21 @@ normalises with its batch's statistics and updates the running ones, one
 forward after the other, and the EMA then mixes the teacher's updated
 running statistics with the student's. The pi-model's teacher pass is the
 student's own forward, whose updated statistics the JAX step discards.
+
+Phase spans (``torch.profiler.record_function``; one enter and exit each
+when no profiler runs): every step marks five disjoint phases, so a trace
+sets each kernel and device gap against the part of the step that launched
+it. ``step.perturb`` (in the algorithm's file) builds the perturbation:
+mask_mt's boxes, blend and loss mask, ICT's lambdas and mixes, VAT's
+``adversarial_input``, aug_mt's warps into the student's frame with the
+gate. ``step.teacher`` (also there) holds the no-grad teacher forwards and
+what is made of their logits besides: blend, softmax, gate.
+``step.student`` (``student_backward``) runs from ``global_denominators``
+to the summed loss, ``step.backward`` is ``total.backward()``, and
+``step.update`` (``finish_step``) the optimiser, ``zero_grad``, the EMA and
+the step advance. Phases inside the chunk loop run once per chunk, the
+others once per step; ``prepare_nets``, VAT's noise, the K > 1 division and
+the ranks' all-reduce lie outside every phase.
 """
 
 from __future__ import annotations
@@ -61,6 +76,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from cutmix_seg_tpu_torch.core.train_state import Optimizer, TrainState
 from cutmix_seg_tpu_torch.models.common import (
@@ -311,35 +327,37 @@ def student_backward(cfg: ConsistencyCommon, student: torch.nn.Module, batch,
     the two run in turn, sup_x's statistics updated first. Leaves the
     gradients in ``.grad``; returns the metrics (device tensors). Under a
     mesh the losses are this rank's shares of the global ones."""
-    sup_x = batch["sup_x"]
-    n = sup_x.shape[0]
-    den = count = None
-    if mesh is not None:
-        den = global_denominators(cfg, mesh, batch["sup_y"],
-                                  conf_px if x_cons is not None else None)
-        count = den[0]
-    logits_cons = None
-    if x_cons is not None and cfg.freeze_bn and sup_x.shape[1:] == x_cons.shape[1:]:
-        logits = student(torch.cat([sup_x, x_cons]))
-        logits_sup, logits_cons = logits[:n], logits[n:]
-    else:
-        logits_sup = student(sup_x)
-        if x_cons is not None:
-            logits_cons = student(x_cons)
-    if sup_loss_fn is None:
-        sup_loss = L.cross_entropy_ignore(logits_sup, batch["sup_y"], cfg.ignore_value,
-                                          count=count)
-    else:
-        sup_loss = sup_loss_fn(logits_sup, batch["sup_y"], count)
-    metrics = {"sup_loss": sup_loss.detach()}
-    total = sup_loss
-    if logits_cons is not None:
-        loss_sum, loss_mean, conf_rate = masked_consistency(
-            cfg, per_px_fn(logits_cons), loss_mask, conf_px, mesh, den)
-        total = total + loss_sum * ramp * cfg.cons_weight
-        metrics["cons_loss"] = loss_mean.detach()
-        metrics["conf_rate"] = conf_rate.detach()
-    total.backward()
+    with record_function("step.student"):
+        sup_x = batch["sup_x"]
+        n = sup_x.shape[0]
+        den = count = None
+        if mesh is not None:
+            den = global_denominators(cfg, mesh, batch["sup_y"],
+                                      conf_px if x_cons is not None else None)
+            count = den[0]
+        logits_cons = None
+        if x_cons is not None and cfg.freeze_bn and sup_x.shape[1:] == x_cons.shape[1:]:
+            logits = student(torch.cat([sup_x, x_cons]))
+            logits_sup, logits_cons = logits[:n], logits[n:]
+        else:
+            logits_sup = student(sup_x)
+            if x_cons is not None:
+                logits_cons = student(x_cons)
+        if sup_loss_fn is None:
+            sup_loss = L.cross_entropy_ignore(logits_sup, batch["sup_y"], cfg.ignore_value,
+                                              count=count)
+        else:
+            sup_loss = sup_loss_fn(logits_sup, batch["sup_y"], count)
+        metrics = {"sup_loss": sup_loss.detach()}
+        total = sup_loss
+        if logits_cons is not None:
+            loss_sum, loss_mean, conf_rate = masked_consistency(
+                cfg, per_px_fn(logits_cons), loss_mask, conf_px, mesh, den)
+            total = total + loss_sum * ramp * cfg.cons_weight
+            metrics["cons_loss"] = loss_mean.detach()
+            metrics["conf_rate"] = conf_rate.detach()
+    with record_function("step.backward"):
+        total.backward()
     return metrics
 
 
@@ -347,10 +365,11 @@ def finish_step(state: TrainState, opt: Optimizer,
                 cfg: ConsistencyCommon) -> TrainState:
     """Optimiser update from the student's gradients, EMA teacher update,
     step advance (all in place)."""
-    opt.step()
-    opt.zero_grad()
-    if cfg.mean_teacher:
-        ema_update(float_tensors(state.teacher), float_tensors(state.student),
-                   cfg.teacher_alpha)
-    state.step += 1
+    with record_function("step.update"):
+        opt.step()
+        opt.zero_grad()
+        if cfg.mean_teacher:
+            ema_update(float_tensors(state.teacher), float_tensors(state.student),
+                       cfg.teacher_alpha)
+        state.step += 1
     return state

@@ -50,6 +50,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 from torch.nn import functional as F
+from torch.profiler import record_function
 
 from cutmix_seg_tpu_torch.core.train_state import TrainState
 from cutmix_seg_tpu_torch.parallel.mesh import Mesh, global_rows, local_rows
@@ -210,16 +211,16 @@ def make_vat_step(model, opt, cfg: VATConfig, mesh=None):
             if use_cons:
                 with tea_stats or contextlib.nullcontext():
                     dir_net = state.student if cfg.vat_dir_from_student else teacher
-                    x_adv = adversarial_input(cfg, dir_net, c["ux_tea"], c["ux_stu"], c["eps0"],
-                                              c.get("radius", radius), mesh)
-                    if tea_stats is None:
-                        logits_tea = teacher_forward(cfg, teacher, c["ux_tea"]).float()
-                    else:  # the pi carry's own statistics update
-                        with torch.no_grad():
+                    with record_function("step.perturb"):
+                        x_adv = adversarial_input(cfg, dir_net, c["ux_tea"], c["ux_stu"],
+                                                  c["eps0"], c.get("radius", radius), mesh)
+                    with record_function("step.teacher"), torch.no_grad():
+                        if tea_stats is None:
+                            logits_tea = teacher_forward(cfg, teacher, c["ux_tea"]).float()
+                        else:  # the pi carry's own statistics update
                             logits_tea = teacher(c["ux_tea"]).float()
-                with torch.no_grad():
-                    conf_px = confidence_px(
-                        cfg, F.softmax(logits_tea, dim=-1).amax(dim=-1, keepdim=True))
+                        conf_px = confidence_px(
+                            cfg, F.softmax(logits_tea, dim=-1).amax(dim=-1, keepdim=True))
 
                 def per_px_fn(logits_stu):
                     return L.consistency_loss_per_pixel(cfg.cons_loss_fn, logits_stu,

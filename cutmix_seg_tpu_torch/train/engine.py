@@ -35,8 +35,11 @@ one program; here they are eager calls on the device's stream. Metric sums
 stay on the device and are fetched once per epoch (and every
 ``nan_check_interval`` iterations for the NaN check). Each part of an
 iteration is a ``record_function`` span (trainer.fetch, trainer.copy,
-trainer.augment, trainer.step), so a ``--profile_dir`` trace attributes the
-host's time.
+trainer.augment, trainer.step), and inside trainer.step the step marks its
+phases (step.perturb, step.teacher, step.student, step.backward,
+step.update; ``semisup.stepcore``), so a ``--profile_dir`` trace
+(``utils.profiling``, iterations 2-4 of the first epoch) attributes the
+host's time and every kernel to a phase.
 
 The JAX trainer's own refusals (a crop height that S does not divide, a
 mismatched ``--n_devices``, a world that S does not divide) raise at setup,
@@ -70,6 +73,7 @@ from cutmix_seg_tpu_torch.ops.iou import EvaluatorIoU
 from cutmix_seg_tpu_torch.parallel import mesh as mesh_mod
 from cutmix_seg_tpu_torch.semisup.stepcore import ConsistencyCommon, accum_zero_metrics
 from cutmix_seg_tpu_torch.train import common
+from cutmix_seg_tpu_torch.utils import profiling
 from cutmix_seg_tpu_torch.utils.device import resolve_device
 from cutmix_seg_tpu_torch.utils.rampup import sigmoid_rampup
 
@@ -380,7 +384,7 @@ class TrainEngine:
                 # last step lets it finish (eval + checkpoint)
                 if self._solo and self._preempted:
                     if prof is not None:
-                        _stop_profile(prof, self.device, profile_dir)
+                        profiling.stop_profile(prof, self.device, profile_dir)
                     print("PREEMPTED: stopped at epoch {} before iter {}; "
                           "the latest epoch-boundary checkpoint resumes "
                           "this run exactly (--resume)".format(epoch_i + 1, it + 1),
@@ -389,14 +393,14 @@ class TrainEngine:
                 if profile_dir and it == 2:
                     # iterations 2-4: steady state, and regular steps (the
                     # step count per epoch must stay as it is for resume)
-                    prof = _start_profile(self.device)
+                    prof = profiling.start_profile(self.device)
                 batch = self.make_batch(self.make_raw_batch())
                 with record_function("trainer.step"):
                     self.state, metrics = self.step(self.state, batch, ramp)
                 msum = {k: msum[k] + v for k, v in metrics.items()}
                 n_steps += 1
                 if prof is not None and (it >= 4 or it == p["iters_per_epoch"] - 1):
-                    _stop_profile(prof, self.device, profile_dir)
+                    profiling.stop_profile(prof, self.device, profile_dir)
                     prof, profile_dir = None, None
                 if (it + 1) % p.get("nan_check_interval", 100) == 0:
                     # a NaN in any step poisons the running sum
@@ -497,23 +501,6 @@ class TrainEngine:
                 print("-- TEST {}".format(", ".join(f"{x:.3%}" for x in test_iou)))
 
         self.close_streams()
-
-
-def _start_profile(device: torch.device):
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    prof = torch.profiler.profile(activities=acts)
-    prof.start()
-    return prof
-
-
-def _stop_profile(prof, device: torch.device, profile_dir: str) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)  # flush device activity into the trace
-    prof.stop()
-    os.makedirs(profile_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
 
 
 # ---- unsupervised batch composers ----

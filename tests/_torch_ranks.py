@@ -21,6 +21,7 @@ import contextlib
 import datetime
 import hashlib
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -86,8 +87,12 @@ class RankProcesses:
             if p.returncode != 0:
                 raise AssertionError(
                     f"rank {r} exited with {p.returncode}:\n{_logs(self.d, self.world)}")
-        return [torch.load(self.d / f"out_{r}.pt", weights_only=False)
+        outs = [torch.load(self.d / f"out_{r}.pt", weights_only=False)
                 for r in range(self.world)]
+        # the task and the outputs take hundreds of MB for the big models:
+        # a passing spawn leaves nothing on disk (a failing one keeps its logs)
+        shutil.rmtree(self.d, ignore_errors=True)
+        return outs
 
     def kill(self) -> None:
         for p in self.procs:

@@ -30,6 +30,7 @@ from cutmix_seg_tpu_torch.masks.box_mask import BoxMaskConfig, sample_box_rects_
 from cutmix_seg_tpu_torch.models.weights import from_jax_variables
 from cutmix_seg_tpu_torch.semisup import mask_mt as tmm
 from cutmix_seg_tpu_torch.semisup import stepcore
+from tests._torch_tmp import drop_tmp_path_if_passed  # noqa: F401
 from tests import test_torch_algorithms as ta
 from tests import test_torch_train_step as tts
 from tests import test_torch_trainbn as tbn

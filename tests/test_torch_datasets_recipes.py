@@ -24,6 +24,7 @@ from cutmix_seg_tpu.tools import convert_isic as jconv_isic
 from cutmix_seg_tpu.tools import download_pascal_aug_names as jnames
 from cutmix_seg_tpu_torch.data import datasets, settings, sources, synthetic
 from cutmix_seg_tpu_torch.tools import convert_cityscapes, convert_isic, download_pascal_aug_names
+from tests._torch_tmp import drop_tmp_path_if_passed  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPLIT = os.path.join(ROOT, "data", "splits", "pascal_aug", "split_0.pkl")

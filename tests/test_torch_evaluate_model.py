@@ -31,6 +31,7 @@ from cutmix_seg_tpu_torch.models.deeplab2 import DeepLab2, _param_label
 from cutmix_seg_tpu_torch.models.weights import from_jax_variables
 from cutmix_seg_tpu_torch.parallel import mesh as tmesh
 from cutmix_seg_tpu_torch.tools import evaluate_model as ttool
+from tests._torch_tmp import drop_tmp_path_if_passed  # noqa: F401
 from tests.test_torch_models import random_variables
 
 torch.set_num_threads(1)

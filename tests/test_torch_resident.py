@@ -20,6 +20,7 @@ from cutmix_seg_tpu.train import engine as jengine
 from cutmix_seg_tpu_torch.aug.params import GeomConfig
 from cutmix_seg_tpu_torch.data import loader, resident
 from cutmix_seg_tpu_torch.train import common, engine
+from tests._torch_tmp import drop_tmp_path_if_passed  # noqa: F401
 from tests.test_torch_trainer import _submit, voc  # noqa: F401
 from tests.test_torch_trainer_algos import both_sources  # noqa: F401
 

@@ -51,6 +51,7 @@ from cutmix_seg_tpu_torch.serve import http as thttp
 from cutmix_seg_tpu_torch.tools import export_model as texport_model
 from cutmix_seg_tpu_torch.tools import serve_bench
 from cutmix_seg_tpu_torch.utils import profiling
+from tests._torch_tmp import drop_tmp_path_if_passed  # noqa: F401
 from tests.test_torch_models import random_variables
 
 torch.set_num_threads(1)
@@ -308,16 +309,13 @@ def test_serve_bench_on_the_cpu(capsys):
 
 
 def test_profiling_helpers(tmp_path):
-    with profiling.trace(None):
-        pass
-    with profiling.trace(str(tmp_path / "prof")):
+    """The trainers' profiler start and export: a CPU trace of a span,
+    written as ``trace.json``."""
+    cpu = torch.device("cpu")
+    prof = profiling.start_profile(cpu)
+    with torch.profiler.record_function("trainer.step"):
         torch.ones(8).sum()
-    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
-    timer = profiling.StepTimer()
-    for _ in range(4):
-        timer.tick(torch.ones(3) * 2, every=2)
-    assert timer.n_steps == 4 and timer.synced_at > 0
-    elapsed = timer.finish(torch.tensor([5.0]))
-    assert elapsed > 0 and timer.steps_per_sec(elapsed) > 0
-    assert profiling._sync(torch.tensor([[3.0]])) == 3.0
-    assert profiling.images_per_sec(10, 4, 2.0) == 20.0
+    profiling.stop_profile(prof, cpu, str(tmp_path / "prof"))
+    events = json.loads((tmp_path / "prof" / "trace.json").read_text())["traceEvents"]
+    assert [e["name"] for e in events if e.get("name") == "trainer.step"] == ["trainer.step"]
+    assert any(e.get("name") == "aten::sum" for e in events)

@@ -24,6 +24,7 @@ from cutmix_seg_tpu_torch.models.deeplab2 import DeepLab2, _param_label
 from cutmix_seg_tpu_torch.parallel import mesh
 from cutmix_seg_tpu_torch.train import engine
 from cutmix_seg_tpu_torch.train import mask_mt
+from tests._torch_tmp import drop_tmp_path_if_passed  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -33,6 +33,7 @@ from cutmix_seg_tpu_torch.models.common import SegModel
 from cutmix_seg_tpu_torch.models.deeplab2 import DeepLab2, _param_label
 from cutmix_seg_tpu_torch.parallel import mesh, spatial
 from cutmix_seg_tpu_torch.train import aug_mt, engine, ict, vat_mt
+from tests._torch_tmp import drop_tmp_path_if_passed  # noqa: F401
 from tests.test_cli_parity import _AUG_MT, _ICT, _VAT_MT
 from tests.test_torch_trainer import NO_DATA, REFUSED, TINY_ARCH, _options, refusal_of
 from tests.test_torch_trainer import voc  # noqa: F401

@@ -23,6 +23,7 @@ from cutmix_seg_tpu_torch.models import registry
 from cutmix_seg_tpu_torch.models.common import SegModel
 from cutmix_seg_tpu_torch.models.denseunet import DenseUNet, _param_label_pretrained
 from cutmix_seg_tpu_torch.train import aug_mt, engine, ict, mask_mt, vat_mt
+from tests._torch_tmp import drop_tmp_path_if_passed  # noqa: F401
 
 torch.set_num_threads(1)
 
