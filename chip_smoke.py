@@ -239,6 +239,8 @@ from cutmix_seg_tpu_torch.parallel.spatial import gather_h, set_spatial, slice_h
 from cutmix_seg_tpu_torch.semisup.aug_cons import AugConsConfig, make_aug_cons_step
 from cutmix_seg_tpu_torch.semisup.ict import ICTConfig, make_ict_step, sample_beta
 from cutmix_seg_tpu_torch.semisup.mask_mt import MaskConsistencyConfig, make_mask_mt_step
+from cutmix_seg_tpu_torch.semisup.step_graph import GraphedStep
+from cutmix_seg_tpu_torch.semisup.stepcore import step_scalars
 from cutmix_seg_tpu_torch.semisup.vat import (
     VATConfig,
     _normalize_per_sample,
@@ -608,6 +610,13 @@ def _run_tiny(device, sd, make_module, cfg, make_step, nb, draws, masks=None) ->
     step)."""
     model, state, opt = _tiny_state(device, sd, make_module, cfg.mean_teacher)
     step = make_step(model, opt, cfg)
+    if isinstance(step, GraphedStep):
+        # the eager body on both devices: host-drawn dropout masks are copied
+        # to the device inside the step, which a CUDA graph cannot hold
+        body = step.body
+
+        def step(state, batch, ramp, rects=None):
+            return body(state, batch, step_scalars(opt, ramp, state.generator.device), rects)
     batch = {k: torch.from_numpy(v).to(device) for k, v in nb.items()}
     metrics, tensors = [], []
     for d in draws:
@@ -813,14 +822,14 @@ def phase_full_step(algorithm: str = "mask_mt") -> dict:
     build.launch_counts.clear()
     t0 = time.perf_counter()
     for _ in range(WARMUP):
-        state, m = step(state, batch, 1.0)
+        state, m = step(state, dict(batch), 1.0)  # a graphed step consumes its batch
         if not all(math.isfinite(v.item()) for v in m.values()):
             raise RuntimeError(f"{algorithm}: non-finite warm-up metrics {m}")
     warm_s = time.perf_counter() - t0
     timed = []
     t0 = time.perf_counter()
     for _ in range(ITERS):
-        state, m = step(state, batch, 1.0)
+        state, m = step(state, dict(batch), 1.0)  # a graphed step consumes its batch
         timed.append(m)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -1127,7 +1136,8 @@ def phase_trainer(voc_root: str, step_ms: float, device=None) -> dict:
     note(f"[trainer] Pascal recipe, {engine.p['arch']} {engine.p['compute_dtype']}, bs {BATCH}, "
          f"{CROP}^2 crops from {engine.ds.canvas_hw} canvases, "
          f"{VOC_TRAIN} train / {VOC_VAL} val synthetic VOC images: epoch lines {first}; "
-         f"{launches1} {KERNEL} launches in {2 * TRAIN_ITERS} iterations; "
+         f"{launches1} {KERNEL} launches in {2 * TRAIN_ITERS} iterations "
+         f"(step graph {engine.step_counters()}); "
          f"checkpoints {ckpts} + model.pt; restored state bit-equal to the saved one")
     note(f"[trainer] epoch 2: {ms_iter:.2f} ms/iteration, {result['img_per_s']:.2f} img/s "
          f"(host loader + copy + augmentation + step) beside phase 4's bare step "
@@ -1147,7 +1157,8 @@ def phase_trainer(voc_root: str, step_ms: float, device=None) -> dict:
         raise RuntimeError(f"resumed run ended at step {engine3.state.step}")
     result["launches_resume"] = launches3
     note(f"[trainer] --resume: started at epoch 3, epoch line {result['resumed']}, "
-         f"{launches3} {KERNEL} launches in {TRAIN_ITERS} iterations")
+         f"{launches3} {KERNEL} launches in {TRAIN_ITERS} iterations "
+         f"(step graph {engine3.step_counters()})")
     return result
 
 
@@ -1286,13 +1297,13 @@ def phase_recipe_step(name: str, extra=(), warmup: int = WARMUP, iters: int = IT
     build.launch_counts.clear()
     t0 = time.perf_counter()
     for _ in range(warmup):
-        state, m = step(state, batch, 1.0)
+        state, m = step(state, dict(batch), 1.0)  # a graphed step consumes its batch
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     timed = []
     t0 = time.perf_counter()
     for _ in range(iters):
-        state, m = step(state, batch, 1.0)
+        state, m = step(state, dict(batch), 1.0)  # a graphed step consumes its batch
         timed.append(m)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -1397,7 +1408,8 @@ def phase_isic_trainers(tmp: str, voc_root: str, zip_path: str) -> dict:
             out["cutmix_resume"] = {"launches": launches2, "losses": _epoch_line(log2, 2)}
             note(f"[trainer isic] cutmix: the checkpoint restores the saved state bit for bit "
                  f"(BN running statistics and generator included); --resume started at epoch "
-                 f"2, epoch line {out['cutmix_resume']['losses']}, {launches2} {KERNEL} launches")
+                 f"2, epoch line {out['cutmix_resume']['losses']}, {launches2} {KERNEL} launches "
+                 f"(step graph {engine2.step_counters()})")
             del engine2
         del engine
         torch.cuda.empty_cache()
@@ -2774,26 +2786,29 @@ def _check_toy_steps(name: str, steps: list) -> None:
 SWEEP_SEEDS, SWEEP_ITERS, SWEEP_LOCKSTEP, SWEEP_TIMED = 2, 100, 3, 20
 
 
-def _sweep_arm(dev, arm: str, iters: int, conf_thresh: float, steps_seen=None):
+def _sweep_arm(dev, arm: str, iters: int, conf_thresh: float, steps_seen=None, made=None):
     """(run_arm, states, data, stream, ramps) of one arm of the sweep at its
-    widths on ``dev``; ``steps_seen`` collects each step's host metrics."""
+    widths on ``dev``; ``steps_seen`` collects each step's host metrics,
+    ``made`` each seed's step as built."""
     hw = (tconv.HW[0], tconv.HW[1])
     seeds = list(range(SWEEP_SEEDS))
-    cfg, make_step, algorithm = tconv.arm_configs(conf_thresh)[arm]
+    cfg, inner, algorithm = tconv.arm_configs(conf_thresh)[arm]
     opt_cfg = OptimizerConfig(opt_type="adam", learning_rate=1e-3)
     states, models = tconv.init_states(seeds, opt_cfg, dev)
-    if steps_seen is not None:
-        inner = make_step
 
-        def make_step(model, opt, cfg):
-            step = inner(model, opt, cfg)
+    def make_step(model, opt, cfg):
+        step = inner(model, opt, cfg)
+        if made is not None:
+            made.append(step)
+        if steps_seen is None:
+            return step
 
-            def rec_step(*args, **kw):
-                state, m = step(*args, **kw)
-                steps_seen.append({k: v.item() for k, v in m.items()})
-                return state, m
+        def rec_step(*args, **kw):
+            state, m = step(*args, **kw)
+            steps_seen.append({k: v.item() for k, v in m.items()})
+            return state, m
 
-            return rec_step
+        return rec_step
     run = tconv.make_arm_runner(cfg, make_step, algorithm, models, 8, hw=hw)
     data = {}
     for k, s in enumerate(seeds):
@@ -2832,7 +2847,8 @@ def _sweep_lockstep() -> None:
     rects = {(t, k): sample_box_rects_np(BoxMaskConfig((0.5, 0.5)), 8, tconv.HW, rng)
              for t in range(SWEEP_LOCKSTEP) for k in range(SWEEP_SEEDS)}
     seen = {"cpu": [], "cuda": []}
-    arms = {dev: _sweep_arm(dev, "mask_mt", SWEEP_LOCKSTEP, 0.0, seen[dev])
+    made = {"cpu": [], "cuda": []}
+    arms = {dev: _sweep_arm(dev, "mask_mt", SWEEP_LOCKSTEP, 0.0, seen[dev], made[dev])
             for dev in ("cpu", "cuda")}
     for k in range(SWEEP_SEEDS):
         sd = _tiny_weights(30 + k, tconv.make_model().module)
@@ -2853,6 +2869,8 @@ def _sweep_lockstep() -> None:
             runs[dev] = (seen[dev][n0:], [tensors])
         _check_small_run(f"sweep mask_mt iteration {t}", runs, 8 * 64 * 64, 1, 1e-3)
         _sync_sweep_states(arms["cuda"][1], arms["cpu"][1])
+    note(f"[sweep] 10a: lockstep, the card's step graphs per seed: "
+         f"{[s.counters() for s in made['cuda']]}")
 
 
 def phase_sweep(tmp: str) -> dict:
@@ -2905,7 +2923,9 @@ def phase_sweep(tmp: str) -> dict:
         for arm in tconv.ARMS) + f"; sweep {doc['total_seconds']} s; peak +{peak:.3f} GiB")
 
     # the CutMix arm's steady iteration (both seeds), data and init apart
-    run, states, data, stream, ramps = _sweep_arm("cuda", "mask_mt", SWEEP_TIMED + 2, 0.8)
+    made = []
+    run, states, data, stream, ramps = _sweep_arm("cuda", "mask_mt", SWEEP_TIMED + 2, 0.8,
+                                                  made=made)
     run(states, data, {n: v[:2] for n, v in stream.items()}, ramps[:2])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2914,8 +2934,9 @@ def phase_sweep(tmp: str) -> dict:
     ms_iter = (time.perf_counter() - t0) / SWEEP_TIMED * 1e3
     note(f"[sweep] 10a: CutMix arm, {SWEEP_SEEDS} seeds in turn: {ms_iter:.2f} ms/iteration "
          f"steady ({SWEEP_TIMED} iterations after 2; "
-         f"{ms_iter / SWEEP_SEEDS:.2f} ms per seed step)")
-    del run, states, data
+         f"{ms_iter / SWEEP_SEEDS:.2f} ms per seed step); the seeds' step graphs: "
+         f"{[s.counters() for s in made]}")
+    del run, states, data, made
     t0 = time.perf_counter()
     _sweep_lockstep()
     note(f"[sweep] 10a: lockstep check {time.perf_counter() - t0:.1f} s")

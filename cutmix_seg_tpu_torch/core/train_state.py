@@ -14,13 +14,24 @@ weight decay, then ``optax.trace(momentum, nesterov)``, then the learning
 rate, in that order. The learning rate of an update is the schedule at the
 optax count before it (the first update uses ``sched(0)``). A parameter that
 got no gradient is updated as if its gradient were zero, as optax does.
+
+An update reads its per-step scalars (each group's negated learning rate,
+Adam's two bias corrections) from one float32 tensor on the parameters'
+device, which the host fills before the update (``Optimizer.scalar_values``,
+``scalars_to_device``; a train step hands its copy over in
+``Optimizer.device_scalars``), so the update launches the same kernels
+whatever the count and can be replayed from a CUDA graph
+(``semisup.step_graph``). Each value is a Python double rounded to float32
+once, as an op rounds a Python scalar; Adam divides by the bias corrections
+(on the card the division by a Python scalar would be a multiply by its
+reciprocal).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Callable, Dict, List, Mapping, Optional
+from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -39,6 +50,18 @@ def _bias_correction(decay: float, t: int) -> float:
     1 - 0.999 is 1.29e-5 away from 1e-3, which moves Adam's first update by
     6.4e-6 relative."""
     return float(np.float32(1.0) - np.float32(decay) ** np.float32(t))
+
+
+def scalars_to_device(values: Sequence[float], device,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``values`` (Python floats) as one float32 tensor on ``device``, in one
+    copy. To a CUDA device the copy goes from pinned memory without waiting
+    for the device; ``out`` (a graph's static input) receives it in place."""
+    device = torch.device(device)
+    host = torch.tensor(values, dtype=torch.float32, pin_memory=device.type == "cuda")
+    if out is None:
+        return host.to(device, non_blocking=True)
+    return out.copy_(host, non_blocking=True)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +94,9 @@ class Optimizer:
         self.cfg = cfg
         self.sched = cfg.lr_schedule or constant_schedule(cfg.learning_rate)
         self.count = 0
+        # the next update's scalar_values() on the device, set by a train step
+        # (stepcore.step_scalars' copy); step() takes them, or copies its own
+        self.device_scalars: Optional[torch.Tensor] = None
         self.groups: List[_Group] = []
         for name, p in named_params.items():
             if labels[name] == "frozen":
@@ -93,22 +119,37 @@ class Optimizer:
             for p in g.params:
                 p.grad = None
 
+    def scalar_values(self) -> List[float]:
+        """The next update's scalars, as Python floats: each group's negated
+        learning rate (``sched(count)`` times its scale), then, with Adam,
+        the bias corrections 1 - b1^t and 1 - b2^t of t = count + 1."""
+        values = [-(self.sched(self.count) * g.scale) for g in self.groups]
+        if self.cfg.opt_type == "adam":
+            t = self.count + 1
+            values += [_bias_correction(ADAM_B1, t), _bias_correction(ADAM_B2, t)]
+        return values
+
     @torch.no_grad()
     def step(self) -> None:
-        """One update from the parameters' ``.grad``, then count += 1."""
-        for g in self.groups:
-            lr = self.sched(self.count) * g.scale
+        """One update from the parameters' ``.grad``, then count += 1. Its
+        scalars are ``device_scalars`` (taken: the next update needs its
+        own), else ``scalar_values()`` copied to the parameters' device."""
+        scalars, self.device_scalars = self.device_scalars, None
+        if scalars is None and self.groups:
+            scalars = scalars_to_device(self.scalar_values(), self.groups[0].params[0].device)
+        n = len(self.groups)
+        for i, g in enumerate(self.groups):
             grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                      for p in g.params]
             if self.cfg.opt_type == "adam":
-                updates = self._adam(g, grads)
+                updates = self._adam(g, grads, scalars[n], scalars[n + 1])
             else:
                 updates = self._sgd(g, grads)
-            torch._foreach_mul_(updates, -lr)
+            torch._foreach_mul_(updates, scalars[i])
             torch._foreach_add_(g.params, updates)
         self.count += 1
 
-    def _adam(self, g: _Group, grads):
+    def _adam(self, g: _Group, grads, bias1: torch.Tensor, bias2: torch.Tensor):
         mu, nu = g.state["mu"], g.state["nu"]
         torch._foreach_mul_(mu, ADAM_B1)
         torch._foreach_add_(mu, torch._foreach_mul(grads, 1.0 - ADAM_B1))
@@ -116,11 +157,10 @@ class Optimizer:
         torch._foreach_mul_(sq, 1.0 - ADAM_B2)
         torch._foreach_mul_(nu, ADAM_B2)
         torch._foreach_add_(nu, sq)
-        t = self.count + 1
-        denom = torch._foreach_div(nu, _bias_correction(ADAM_B2, t))
+        denom = torch._foreach_div(nu, bias2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, ADAM_EPS)
-        updates = torch._foreach_div(mu, _bias_correction(ADAM_B1, t))
+        updates = torch._foreach_div(mu, bias1)
         torch._foreach_div_(updates, denom)
         return updates
 

@@ -86,6 +86,14 @@ def sample_box_rects_np(
     return rects.astype(np.float32)
 
 
+def _sides(mask_hw: Tuple[int, int], n: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """(h, w, h, w, ...)[:n] on ``device``, filled there: no copy from the
+    host, so a CUDA graph of the step can hold it."""
+    sides = torch.full((n,), mask_hw[0], dtype=dtype, device=device)
+    sides[1::2] = mask_hw[1]
+    return sides
+
+
 def _uniform(generator: torch.Generator, shape, lo: float = 0.0,
              hi: float = 1.0) -> torch.Tensor:
     u = torch.rand(shape, generator=generator, device=generator.device)
@@ -125,7 +133,7 @@ def sample_box_rects(
         else:
             y = x = _uniform(generator, shape, lo, hi) * (fac * fac)
 
-    hw = torch.tensor(mask_hw, dtype=torch.float32, device=generator.device)
+    hw = _sides(mask_hw, 2, torch.float32, generator.device)
     sizes = torch.round(torch.stack([y, x], dim=2) * hw)
     u_pos = _uniform(generator, shape + (2,))
     if cfg.within_bounds:
@@ -140,9 +148,8 @@ def sample_box_rects(
 def resolve_rects(rects: torch.Tensor, mask_hw: Tuple[int, int]) -> torch.Tensor:
     """float (N, B, 4) (y0, x0, y1, x1) -> int32 with NumPy-slice index
     resolution: truncate toward zero, negative += size, clamp to [0, size]."""
-    h, w = mask_hw
     ri = torch.trunc(rects).to(torch.int32)
-    size = torch.tensor([h, w, h, w], dtype=torch.int32, device=rects.device)
+    size = _sides(mask_hw, 4, torch.int32, rects.device)
     ri = torch.where(ri < 0, ri + size, ri)
     return torch.minimum(ri.clamp_min(0), size)
 

@@ -9,6 +9,8 @@ source, all together, and waits for all of them.
 
 Kernel wrappers count their launches in ``launch_counts`` (one per launch of
 the kernel, nowhere else), so a run can show that its path went through them.
+A CUDA graph's replay counts the launches its capture recorded
+(``semisup.step_graph``); the capture itself launches nothing and counts none.
 """
 
 from __future__ import annotations

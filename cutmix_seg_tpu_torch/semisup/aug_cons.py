@@ -48,6 +48,8 @@ from cutmix_seg_tpu_torch.semisup.stepcore import (
     confidence_px,
     finish_step,
     prepare_nets,
+    split_scalars,
+    step_scalars,
     student_backward,
     teacher_forward,
     validate_accum,
@@ -81,6 +83,7 @@ def make_aug_cons_step(model, opt, cfg: AugConsConfig, mesh=None):
         return slice_h(x, mesh) if spatial else x
 
     def step(state: TrainState, batch, ramp):
+        ramp = split_scalars(opt, step_scalars(opt, ramp, state.generator.device))
         teacher = prepare_nets(cfg, state, mesh)
         full = {"sup_x": batch["sup_x"], "sup_y": batch["sup_y"]}
         if use_cons:

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 from torch.nn import functional as F
 
@@ -45,6 +46,15 @@ def robust_binary_crossentropy(pred: torch.Tensor, tgt: torch.Tensor,
     return -(tgt * torch.log(pred + eps) + inv_tgt * torch.log(inv_pred))
 
 
+def _root_c(logits: torch.Tensor) -> torch.Tensor:
+    """sqrt(num_classes), the float32 square root rounded to ``logits``'
+    dtype, as a 0-dim tensor on their device: filled there, with no copy
+    from the host (a tensor divisor divides where a Python one would be a
+    multiply by its reciprocal on the card)."""
+    root = float(np.sqrt(np.float32(logits.shape[-1])))
+    return torch.full((), root, dtype=logits.dtype, device=logits.device)
+
+
 def consistency_loss_per_pixel(loss_fn: str, logits_stu: torch.Tensor,
                                logits_tea: torch.Tensor,
                                compute_dtype: torch.dtype = torch.float32
@@ -53,9 +63,6 @@ def consistency_loss_per_pixel(loss_fn: str, logits_stu: torch.Tensor,
 
     loss_fn: 'var' | 'logits_var' | 'logits_smoothl1' | 'bce' | 'kld'
     """
-    num_classes = logits_stu.shape[-1]
-    root_c = torch.sqrt(torch.tensor(float(num_classes))).to(
-        device=logits_stu.device, dtype=compute_dtype)
     stu = logits_stu.to(compute_dtype)
     tea = logits_tea.to(compute_dtype)
 
@@ -64,11 +71,11 @@ def consistency_loss_per_pixel(loss_fn: str, logits_stu: torch.Tensor,
         return (d * d).sum(dim=-1, keepdim=True).float()
     if loss_fn == "logits_var":
         d = stu - tea
-        return ((d * d).sum(dim=-1, keepdim=True) / root_c).float()
+        return ((d * d).sum(dim=-1, keepdim=True) / _root_c(stu)).float()
     if loss_fn == "logits_smoothl1":
         d = torch.abs(stu - tea)
         l = torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
-        return (l.sum(dim=-1, keepdim=True) / root_c).float()
+        return (l.sum(dim=-1, keepdim=True) / _root_c(stu)).float()
     if loss_fn == "bce":
         p_stu = F.softmax(stu, dim=-1)
         p_tea = F.softmax(tea, dim=-1)

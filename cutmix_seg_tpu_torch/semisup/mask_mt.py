@@ -32,6 +32,11 @@ of the forwards (the crops, labels, teacher inputs, the blend, its mask and
 the loss mask) is cut to this rank's rows.
 
 Metrics stay device tensors (nothing here waits for the device).
+
+On a CUDA state without a mesh the step is replayed from a CUDA graph
+(``semisup.step_graph``): its first call runs eagerly, its second captures
+it, and later calls with the same batch signature replay it. The batch is
+then consumed: the step empties the caller's dict.
 """
 
 from __future__ import annotations
@@ -53,12 +58,14 @@ from cutmix_seg_tpu_torch.ops.cutmix import cutmix_blend
 from cutmix_seg_tpu_torch.parallel.mesh import global_rows, local_rows
 from cutmix_seg_tpu_torch.parallel.spatial import slice_batch_h
 from cutmix_seg_tpu_torch.semisup import losses as L
+from cutmix_seg_tpu_torch.semisup.step_graph import GraphedStep
 from cutmix_seg_tpu_torch.semisup.stepcore import (
     ConsistencyCommon,
     accumulate,
     confidence_px,
     finish_step,
     prepare_nets,
+    split_scalars,
     student_backward,
     teacher_forward,
     teacher_pair,
@@ -126,7 +133,12 @@ def make_mask_mt_step(model, opt, cfg: MaskConsistencyConfig, mesh=None):
 
     Returns ``step(state, batch, ramp, rects=None) -> (state, metrics)``;
     ``rects`` (N, n_boxes, 4) float32, for the global batch, replaces the
-    sampled boxes.
+    sampled boxes. The step is a ``GraphedStep``: without a mesh, on a CUDA
+    state, it consumes ``batch`` and, from its second call, replays a CUDA
+    graph; over a mesh it steps eagerly. Its ``counters()`` count captures,
+    replays and eager steps; its ``body(state, batch, scalars, rects)`` is
+    the eager step, its host scalars given on the device
+    (``stepcore.step_scalars``).
     """
     if cfg.mask_mode not in ("mix", "zero"):
         raise ValueError(f"unknown mask_mode {cfg.mask_mode!r}")
@@ -146,7 +158,9 @@ def make_mask_mt_step(model, opt, cfg: MaskConsistencyConfig, mesh=None):
     sdt = _DTYPES[cfg.loss_softmax_dtype]
     tea_keys = ("ux0_tea", "ux1_tea") if cfg.mask_mode == "mix" else ("ux_tea",)
 
-    def step(state: TrainState, batch, ramp, rects=None):
+    def body(state: TrainState, batch, scalars, rects=None):
+        """The step, its host scalars on the device (``step_scalars``)."""
+        ramp = split_scalars(opt, scalars)
         teacher = prepare_nets(cfg, state, mesh)
         full = {"sup_x": batch["sup_x"], "sup_y": batch["sup_y"]}
         # ---- mixing geometry over the whole batch, outside the gradient ----
@@ -195,4 +209,4 @@ def make_mask_mt_step(model, opt, cfg: MaskConsistencyConfig, mesh=None):
         metrics = accumulate(K, state.student, full, one_chunk, mesh)
         return finish_step(state, opt, cfg), metrics
 
-    return step
+    return GraphedStep(body, opt, capturable=mesh is None)

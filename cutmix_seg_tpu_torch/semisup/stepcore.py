@@ -65,6 +65,11 @@ to the summed loss, ``step.backward`` is ``total.backward()``, and
 the step advance. Phases inside the chunk loop run once per chunk, the
 others once per step; ``prepare_nets``, VAT's noise, the K > 1 division and
 the ranks' all-reduce lie outside every phase.
+
+The host's per-step scalars (``ramp``, the optimiser's learning rates and
+bias corrections) reach the device in one copy before the step
+(``step_scalars``), so a step launches the same kernels on every call and
+the mask_mt step can be replayed from a CUDA graph (``semisup.step_graph``).
 """
 
 from __future__ import annotations
@@ -78,7 +83,7 @@ import torch
 import torch.distributed as dist
 from torch.profiler import record_function
 
-from cutmix_seg_tpu_torch.core.train_state import Optimizer, TrainState
+from cutmix_seg_tpu_torch.core.train_state import Optimizer, TrainState, scalars_to_device
 from cutmix_seg_tpu_torch.models.common import (
     running_stats_kept,
     set_bn_mesh,
@@ -191,6 +196,21 @@ def confidence_px(cfg: ConsistencyCommon, conf_tea: torch.Tensor):
     if cfg.conf_thresh > 0.0:
         return (conf_tea >= cfg.conf_thresh).float()
     return None
+
+
+def step_scalars(opt: Optimizer, ramp: float, device,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A step's host scalars on ``device`` in one copy: ``ramp`` (for
+    ``student_backward``), then ``opt.scalar_values()`` (for the update:
+    ``split_scalars``); into ``out`` when given."""
+    return scalars_to_device([float(ramp), *opt.scalar_values()], device, out)
+
+
+def split_scalars(opt: Optimizer, scalars: torch.Tensor) -> torch.Tensor:
+    """Hand the optimiser its part of ``step_scalars``' tensor (for the
+    update that ``finish_step`` makes); returns the ramp's 0-dim tensor."""
+    opt.device_scalars = scalars[1:]
+    return scalars[0]
 
 
 def validate_accum(cfg: ConsistencyCommon, algo: str) -> None:
@@ -317,10 +337,11 @@ def student_backward(cfg: ConsistencyCommon, student: torch.nn.Module, batch,
                      x_cons: Optional[torch.Tensor],
                      per_px_fn: Callable[[torch.Tensor], torch.Tensor],
                      loss_mask: Optional[torch.Tensor], conf_px: Optional[torch.Tensor],
-                     ramp: float, sup_loss_fn: Optional[Callable] = None,
+                     ramp: torch.Tensor, sup_loss_fn: Optional[Callable] = None,
                      mesh: Optional[Mesh] = None) -> dict:
     """The student's loss and backward: CE (ignore) on ``sup_x`` plus, with
-    ``x_cons``, ``ramp * cons_weight`` times the masked consistency of
+    ``x_cons``, ``ramp * cons_weight`` (``ramp``: ``step_scalars``' first
+    element) times the masked consistency of
     ``per_px_fn(logits of x_cons)``; ``sup_loss_fn(logits, labels, count)``
     replaces the CE. Under frozen BN one forward over
     ``[sup_x | x_cons]`` is the JAX step's two forwards; with training BN
@@ -363,8 +384,9 @@ def student_backward(cfg: ConsistencyCommon, student: torch.nn.Module, batch,
 
 def finish_step(state: TrainState, opt: Optimizer,
                 cfg: ConsistencyCommon) -> TrainState:
-    """Optimiser update from the student's gradients, EMA teacher update,
-    step advance (all in place)."""
+    """Optimiser update from the student's gradients (with the scalars a
+    step left in ``opt.device_scalars``), EMA teacher update, step advance
+    (all in place)."""
     with record_function("step.update"):
         opt.step()
         opt.zero_grad()

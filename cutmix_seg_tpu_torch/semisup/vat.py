@@ -62,6 +62,8 @@ from cutmix_seg_tpu_torch.semisup.stepcore import (
     confidence_px,
     finish_step,
     prepare_nets,
+    split_scalars,
+    step_scalars,
     student_backward,
     teacher_forward,
     validate_accum,
@@ -184,6 +186,7 @@ def make_vat_step(model, opt, cfg: VATConfig, mesh=None):
     spatial = mesh is not None and mesh.n_model > 1
 
     def step(state: TrainState, batch, ramp, eps0: Optional[torch.Tensor] = None):
+        ramp = split_scalars(opt, step_scalars(opt, ramp, state.generator.device))
         teacher = prepare_nets(cfg, state, mesh)
         full = {"sup_x": batch["sup_x"], "sup_y": batch["sup_y"]}
         radius = None

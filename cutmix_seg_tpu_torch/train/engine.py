@@ -33,7 +33,9 @@ store on the device), the device augmentation (``augmentor.sup`` and the
 algorithm's ``compose``), and the step. The JAX package traces the three into
 one program; here they are eager calls on the device's stream. Metric sums
 stay on the device and are fetched once per epoch (and every
-``nan_check_interval`` iterations for the NaN check). Each part of an
+``nan_check_interval`` iterations for the NaN check). The mask_mt step is
+replayed from a CUDA graph from its second iteration on
+(``semisup.step_graph``); its counters go into each epoch's JSONL line. Each part of an
 iteration is a ``record_function`` span (trainer.fetch, trainer.copy,
 trainer.augment, trainer.step), and inside trainer.step the step marks its
 phases (step.perturb, step.teacher, step.student, step.backward,
@@ -327,6 +329,12 @@ class TrainEngine:
                 batch.update(self.spec.compose(self.augmentor, raw, self.colour_gen))
             return batch
 
+    def step_counters(self) -> dict:
+        """The step's CUDA-graph counters (captures, replays, eager_steps;
+        ``semisup.step_graph``) where it keeps them, else {}."""
+        counters = getattr(self.step, "counters", None)
+        return counters() if counters is not None else {}
+
     def eval_net(self):
         return self.state.teacher if self.mean_teacher else self.state.student
 
@@ -438,6 +446,7 @@ class TrainEngine:
                     "images_per_sec": p["iters_per_epoch"] * self.global_batch
                     / max(t2 - t1, 1e-9),
                     "train_time": t_train, "eval_time": t2 - t1 - t_train,
+                    **self.step_counters(),
                 })
             stop = self._preempted
             if not self._solo:  # any rank's signal stops every rank here
