@@ -21,16 +21,16 @@ from benchmark import recipe
 from benchmark.reference import models
 
 
-def pass_flops(model_cfg: dict, n: int, crop, grad: str) -> int:
+def pass_flops(model_cfg: dict, n: int, crop, grad: str, train_bn: bool) -> int:
     """FLOPs of one pass over n images of ``crop``; ``grad``: 'none' or
-    'params' (the trainable weights' gradients)."""
+    'params' (the trainable weights' gradients); ``train_bn``: BN from the
+    batch (the recipe without ``--freeze_bn``) or from running statistics."""
     leaves = models.leaves_of(model_cfg)
     P = {lf.name: torch.empty(lf.shape, device="meta", requires_grad=grad == "params"
                               and lf.group in ("pretrained", "new"))
          for lf in leaves if lf.group != "buffer"}
     B = {lf.name: torch.empty(lf.shape, device="meta") for lf in leaves if lf.group == "buffer"}
     x = torch.empty((n, *crop, 3), device="meta")
-    train_bn = model_cfg["family"] == "denseunet"
     with FlopCounterMode(display=False) as fc:
         out = models.forward(model_cfg, P, B, x, models.Mode(train_bn=train_bn,
                                                              update_stats=False))
@@ -45,7 +45,8 @@ def cell_counts(cell: dict) -> Dict[str, int]:
     hp = recipe.hyperparameters(cell)
     crop = recipe.geometry(hp).crop
     model_cfg = cell["config"]["model"]
-    total = sum(pass_flops(model_cfg, p["batches"] * hp["batch_size"], crop, p["grad"])
+    total = sum(pass_flops(model_cfg, p["batches"] * hp["batch_size"], crop, p["grad"],
+                           not hp["freeze_bn"])
                 for p in cell["traffic"]["model_passes"])
     blend = 0
     if cell["traffic"]["cutmix_blends"]:

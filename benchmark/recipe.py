@@ -40,38 +40,38 @@ SUPPORTED = {
 }
 
 
-def load_json(*parts: str) -> dict:
-    with open(os.path.join(HERE, *parts)) as f:
+def load_json(path: str) -> dict:
+    with open(path) as f:
         return json.load(f)
 
 
 def manifest() -> dict:
-    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
-        return json.load(f)
+    return load_json(os.path.join(ROOT, "BENCHMARK.json"))
 
 
-def load_cell(name: str, manifest_data: dict = None) -> dict:
+def load_cell(name: str, manifest_data: dict = None, root: str = ROOT) -> dict:
     """{'name', 'config', 'traffic', 'workload', 'entry', 'end_to_end',
     'per_layer'}: the cell's files and the metrics BENCHMARK.json lists for
     it (a per-layer metric only where the cell reports the end-to-end
-    metric it moves)."""
+    metric it moves). ``root``: the checkout that holds the configuration's
+    ``file`` and the benchmark's ``traffic/`` and ``workloads/``."""
     m = manifest_data or manifest()
     entry = next((w for w in m["workloads"] if w["name"] == name), None)
     if entry is None:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json")
     cfg_entry = next(c for c in m["configs"] if c["name"] == entry["config"])
+    here = os.path.join(root, os.path.relpath(HERE, ROOT))
 
     def listed(metric):
         return "workloads" not in metric or name in metric["workloads"]
 
-    with open(os.path.join(ROOT, cfg_entry["file"])) as f:
-        config = json.load(f)
     end_to_end = [x for x in m["end_to_end"] if listed(x)]
     reported = {x["name"] for x in end_to_end}
     return {
-        "name": name, "entry": entry, "config": config,
-        "traffic": load_json("traffic", f"{entry['traffic']}.json"),
-        "workload": load_json("workloads", f"{name}.json"),
+        "name": name, "entry": entry,
+        "config": load_json(os.path.join(root, cfg_entry["file"])),
+        "traffic": load_json(os.path.join(here, "traffic", f"{entry['traffic']}.json")),
+        "workload": load_json(os.path.join(here, "workloads", f"{name}.json")),
         "end_to_end": end_to_end,
         # a per-layer metric is read in the cells that report what it moves
         "per_layer": [x for x in m["per_layer"] if listed(x) and x["moves"] in reported],

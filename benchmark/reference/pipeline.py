@@ -5,10 +5,7 @@ normalisation. Plain NumPy, PIL and PyTorch, written from the recipe's
 definitions (the published data pipeline of the semi-supervised
 segmentation code):
 
-* splits: Pascal VOC with the SBD names (train_aug.txt and val.txt, names
-  sorted, the train names permuted by the split pickle; the first n_sup are
-  labelled, every train name is unlabelled), ISIC 2017 (the zip's train
-  names, permuted by ``RandomState(split_seed)``);
+* splits and decodes: the data kind's reader (``benchmark/kinds/<kind>.py``);
 * streams: each an endless reshuffled pass over its names
   (``RandomState(seed)``), its crop draws from ``RandomState(seed + 1)``;
   the labelled stream seeded ``base + 10``, unlabelled stream i
@@ -31,16 +28,13 @@ Coordinates are computed in float64, pixels in float32.
 from __future__ import annotations
 
 import dataclasses
-import io
 import math
-import os
-import pickle
-import zipfile
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from PIL import Image
+
+from benchmark import named
 
 LUMA = (0.299, 0.587, 0.114)
 
@@ -48,68 +42,25 @@ LUMA = (0.299, 0.587, 0.114)
 # ------------------------------------------------------------------ splits
 
 class Dataset:
-    """Names, labelled and unlabelled indices, and the decode of a sample."""
+    """Names, labelled and unlabelled indices, and the decode of a sample,
+    read by the kind's reader, ``benchmark/kinds/<kind>.py``:
+    ``Reader(path)`` with ``split(n_sup, split_path, split_seed)`` (names,
+    labelled indices, unlabelled indices), ``image(name)`` and
+    ``labels(name)``."""
 
     def __init__(self, kind: str, path: str, n_sup: int, split_path: Optional[str] = None,
                  split_seed: int = 12345):
-        self.kind, self.path = kind, path
-        if kind == "voc_sbd":
-            sets = os.path.join(path, "ImageSets", "SegmentationAug")
-            train = _lines(os.path.join(sets, "train_aug.txt"))
-            val = _lines(os.path.join(sets, "val.txt"))
-            self.names = sorted(set(train + val))
-            pos = {n: i for i, n in enumerate(self.names)}
-            train_ndx = np.array([pos[n] for n in train])
-            with open(split_path, "rb") as f:
-                train_ndx = train_ndx[pickle.load(f)]
-            self.sup = train_ndx[:n_sup]
-            self.unsup = train_ndx
-        elif kind == "isic_zip":
-            with zipfile.ZipFile(path) as zf:
-                stems = [os.path.splitext(n)[0] for n in zf.namelist()]
-            self.names = sorted(s[:-2] for s in stems if s.endswith("_x"))
-            train_ndx = np.array([i for i, n in enumerate(self.names) if n.startswith("train/")])
-            perm = np.random.RandomState(split_seed).permutation(len(train_ndx))
-            self.sup = train_ndx[perm[:n_sup]]
-            self.unsup = train_ndx[perm]
-        else:
-            raise ValueError(f"unknown dataset kind {kind!r}")
-        self._zip = None
+        self.reader = named.module_of("benchmark.kinds", kind).Reader(path)
+        self.names, self.sup, self.unsup = self.reader.split(n_sup, split_path, split_seed)
 
     def image(self, i: int) -> np.ndarray:
-        if self.kind == "voc_sbd":
-            arr = _decode_file(os.path.join(self.path, "JPEGImages", f"{self.names[i]}.jpg"))
-        else:
-            arr = _decode_bytes(self._zf().read(f"{self.names[i]}_x.png"))
+        arr = self.reader.image(self.names[i])
         if arr.ndim == 2:
             arr = np.stack([arr] * 3, axis=-1)
         return arr[:, :, :3]
 
     def labels(self, i: int) -> np.ndarray:
-        if self.kind == "voc_sbd":
-            return _decode_file(os.path.join(
-                self.path, "SegmentationClassAug", f"{self.names[i]}.png")).astype(np.int64)
-        return (_decode_bytes(self._zf().read(f"{self.names[i]}_y.png")) >= 127).astype(np.int64)
-
-    def _zf(self) -> zipfile.ZipFile:
-        if self._zip is None:
-            self._zip = zipfile.ZipFile(self.path)
-        return self._zip
-
-
-def _lines(path: str) -> List[str]:
-    with open(path) as f:
-        return [ln.strip() for ln in f if ln.strip()]
-
-
-def _decode_file(path: str) -> np.ndarray:
-    with Image.open(path) as im:
-        return np.array(im)
-
-
-def _decode_bytes(data: bytes) -> np.ndarray:
-    with Image.open(io.BytesIO(data)) as im:
-        return np.array(im)
+        return self.reader.labels(self.names[i])
 
 
 # ------------------------------------------------------------------ crops

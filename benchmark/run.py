@@ -29,7 +29,6 @@ T_START = time.perf_counter()
 
 import argparse  # noqa: E402
 import gc  # noqa: E402
-import importlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import shutil  # noqa: E402
@@ -62,11 +61,11 @@ def per_layer(cell: dict, summary: dict) -> dict:
     """Each per-layer metric of the cell from its reader
     (``benchmark/metrics/<name>.py``); a reader that finds nothing to read
     returns None and the metric is left out."""
+    from benchmark import named
+
     out = {}
     for m in cell["per_layer"]:
-        mod = importlib.import_module(
-            "benchmark.metrics." + m["name"].replace(".", "_").replace("-", "_"))
-        v = mod.read(summary, cell)
+        v = named.module_of("benchmark.metrics", m["name"]).read(summary, cell)
         if v is not None:
             out[m["name"]] = {"value": float(v), "unit": m["unit"]}
     return out

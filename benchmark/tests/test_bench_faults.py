@@ -9,12 +9,12 @@ import json
 import pytest
 
 from benchmark import check, faults, run
-from benchmark.tests.tiny import tiny_cell
+from benchmark.tests.tiny import cells, tiny_cell
 
 SEED = 987654321
 
 
-@pytest.mark.parametrize("name", ["pascal-cutmix", "isic-cutmix"])
+@pytest.mark.parametrize("name", cells())
 @pytest.mark.parametrize("fault", sorted(faults.FAULTS))
 def test_fault_fails(tiny_archs, monkeypatch, name, fault):
     faults.FAULTS[fault](monkeypatch)
@@ -22,13 +22,13 @@ def test_fault_fails(tiny_archs, monkeypatch, name, fault):
     assert not res["correct"], json.dumps(res["checks"])
 
 
-@pytest.mark.parametrize("name", ["pascal-cutmix", "isic-cutmix"])
+@pytest.mark.parametrize("name", cells())
 def test_sound_run_passes_the_tiny_limits(tiny_archs, name):
     res = run.run_cell(tiny_cell(name), SEED, 0.3, False, "cpu")
     assert res["correct"], json.dumps(res["checks"])
 
 
-@pytest.mark.parametrize("name", ["pascal-cutmix", "isic-cutmix"])
+@pytest.mark.parametrize("name", cells())
 def test_control_fails(tiny_archs, name):
     cell = tiny_cell(name)
     ver = check.verdict(faults.control(cell, SEED, "cpu")["readings"],

@@ -3,15 +3,14 @@ and fit together; the stored counts are what the counters count."""
 
 import json
 import os
-import re
 
 import pytest
 
 from benchmark import check, recipe
 from benchmark.counts import flops
+from benchmark.named import NAME
 from benchmark.reference import models
 
-NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 MANIFEST = recipe.manifest()
 CELLS = [w["name"] for w in MANIFEST["workloads"]]
 
@@ -44,6 +43,18 @@ def test_cell_reports_what_its_metrics_move(name):
     for m in MANIFEST["per_layer"]:
         if name in m.get("workloads", []):
             assert m["moves"] in reported
+
+
+@pytest.mark.parametrize("metric", [m["name"] for m in MANIFEST["per_layer"]])
+def test_per_layer_metric_lists_its_cells(metric):
+    """Every per-layer metric lists the cells it is read in, so that a cell
+    a later configuration adds takes no metric it was not given; each
+    listed cell reports the end-to-end metric the metric moves."""
+    m = next(x for x in MANIFEST["per_layer"] if x["name"] == metric)
+    assert m.get("workloads")
+    for name in m["workloads"]:
+        assert name in CELLS
+        assert m["moves"] in {x["name"] for x in recipe.load_cell(name)["end_to_end"]}
 
 
 @pytest.mark.parametrize("name", CELLS)

@@ -1,7 +1,7 @@
 """What the benchmark imports, by top-level module name compared whole (the
 port's name begins with the JAX package's): nothing under benchmark/
-imports JAX, flax or the JAX package, and the reference imports nothing of
-the port."""
+imports JAX, flax or the JAX package, and the reference, with the data
+kinds' readers, imports nothing of the port."""
 
 import ast
 import os
@@ -41,7 +41,8 @@ def test_no_jax_anywhere(path):
     assert not set(_top_names(path)) & FORBIDDEN
 
 
-@pytest.mark.parametrize("path", sorted(_files("reference")), ids=lambda p: os.path.relpath(p, HERE))
+@pytest.mark.parametrize("path", sorted([*_files("reference"), *_files("kinds")]),
+                         ids=lambda p: os.path.relpath(p, HERE))
 def test_reference_imports_nothing_of_the_port(path):
     assert "cutmix_seg_tpu_torch" not in set(_top_names(path))
 

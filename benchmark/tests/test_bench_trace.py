@@ -6,6 +6,7 @@ import importlib
 import pytest
 
 from benchmark import recipe, trace
+from benchmark.tests.tiny import cells
 
 
 class Ev:
@@ -96,8 +97,9 @@ def test_summary_without_activity_type():
         trace.summarise(events(), 2, 0.2)
 
 
-def test_readers():
-    cell = recipe.load_cell("pascal-cutmix")
+@pytest.mark.parametrize("name", cells())
+def test_readers(name):
+    cell = recipe.load_cell(name)
     s = trace.summarise(events(), 2, 0.2)
 
     def read(name):
@@ -120,9 +122,10 @@ def test_readers():
     assert read("state_gib") == 1.5 and read("transient_gib") == 3.25
 
 
-def test_readers_find_nothing():
+@pytest.mark.parametrize("name", cells())
+def test_readers_find_nothing(name):
     """A trace without the kernel or its group gives no reading, not 0."""
-    cell = recipe.load_cell("pascal-cutmix")
+    cell = recipe.load_cell(name)
     evs = [e for e in events() if trace.CUTMIX_KERNEL not in e.name() and "conv" not in e.name()]
     s = trace.summarise(evs, 2, 0.2)
     s.update(state_gib=None, transient_gib=None)  # as off a CUDA device

@@ -1,87 +1,58 @@
-"""Tiny cells for the CPU tests: the benchmark's two configurations at one
-block per stage and small crops, registered in the port's architecture
-registry under names of their own, on small written data."""
+"""Tiny cells for the CPU tests: a benchmark cell at one block per stage
+and small crops, on small written data, cut by its family's module,
+``benchmark/tests/tiny_families/<family>.py``, which holds:
+
+* ``ARCH`` and ``register()``: the tiny port architecture, registered in
+  the port's architecture registry under a name of its own;
+* ``FLAGS`` and ``cut(config)``: the flags it sets and its cut of the
+  configuration's model, data and initialisation;
+* ``LIMITS``: the tiny cell's limits on the CPU, and ``CARD_LIMITS`` what
+  the card's tests compare at the tiny sizes;
+* ``F32_TOLERANCE`` and ``f32_patches(patcher)``: the bound on every
+  reading of the float32 program against the reference, and what that
+  lockstep patches first."""
 
 from __future__ import annotations
 
 import copy
+from types import ModuleType
+from typing import List
 
-import numpy as np
+from benchmark import named, recipe
 
-from benchmark import recipe
 
-TINY_ARCHS = {"deeplab2": "bench_tiny_deeplab2", "denseunet": "bench_tiny_denseunet"}
-# the tiny cells' limits, above their sound runs' readings on the CPU
-# (bf16 program against the float32 reference; seeds 11, 2147483901 and
-# 987654321: DeepLab sup 0.0022-0.011, cons 0.04-0.19, grad 0.006-0.025,
-# change 0.0016-0.0037; DenseUNet, whose batch of 2 at 64^2 makes training
-# BN noisy, sup 0.0018-0.022, cons 0.0027-0.0097, grad 0.06-0.12, change
-# 0.06-0.12; the teacher's change as the student's) and below what the
-# faults read there (a teacher left unchanged reads 1)
-TINY_LIMITS = {
-    "deeplab2": {"sup_loss_gap": 0.03, "cons_loss_gap": 0.5, "grad_gap": 0.08,
-                 "change_gap": 0.006, "teacher_change_gap": 0.1},
-    "denseunet": {"sup_loss_gap": 0.035, "cons_loss_gap": 0.015, "grad_gap": 0.3,
-                  "change_gap": 0.3, "teacher_change_gap": 0.5},
-}
+def cells() -> List[str]:
+    """The cells of BENCHMARK.json, which the tests are parametrised by."""
+    return [w["name"] for w in recipe.manifest()["workloads"]]
 
-# what the card's control test compares at the tiny sizes, where the
-# CPU's limits do not hold: bf16 convolutions round otherwise on the card
-# and its reference is not bit-reproducible (4 seeds on the card: DenseUNet
-# sound runs read sup_loss_gap_step1 0.0020-0.0042, the control
-# 0.0104-0.0332; DeepLab sound runs grad_diff_median_gap 0.024-0.039, the
-# control 0.10-0.25)
-TINY_CARD_LIMITS = {
-    "deeplab2": {"grad_diff_median_gap": 0.06},
-    "denseunet": {"sup_loss_gap_step1": 0.007},
-}
+
+def family(cell: dict) -> ModuleType:
+    """The tiny module of the cell's model family."""
+    return named.module_of("benchmark.tests.tiny_families", cell["config"]["model"]["family"])
 
 
 def register_tiny_archs() -> None:
-    from cutmix_seg_tpu_torch.models import common, deeplab2, denseunet, registry
-
-    def tiny_deeplab2(num_classes, dtype=None, pretrained=True):
-        module = deeplab2.DeepLab2(num_classes, layers=(1, 1, 1, 1), dtype=dtype)
-        return common.SegModel(name=TINY_ARCHS["deeplab2"], module=module,
-                               mean=np.asarray(common.IMAGENET_MEAN),
-                               std=np.asarray(common.IMAGENET_STD), block_size=(1, 1),
-                               param_label=deeplab2._param_label)
-
-    def tiny_denseunet(num_classes, dtype=None, pretrained=True):
-        module = denseunet.DenseUNet(num_classes, block_config=(1, 1, 1, 1), dtype=dtype)
-        return common.SegModel(name=TINY_ARCHS["denseunet"], module=module,
-                               mean=np.asarray(common.IMAGENET_MEAN),
-                               std=np.asarray(common.IMAGENET_STD), block_size=(32, 32),
-                               param_label=denseunet._param_label_pretrained)
-
-    registry.register(TINY_ARCHS["deeplab2"])(tiny_deeplab2)
-    registry.register(TINY_ARCHS["denseunet"])(tiny_denseunet)
+    """Register the tiny architecture of every family that a cell runs."""
+    for mod in {family(recipe.load_cell(name)) for name in cells()}:
+        mod.register()
 
 
-def _set_flag(flags, key, value):
+def _set_flag(flags: List[str], key: str, value) -> List[str]:
     out = [f for f in flags if not f.startswith(f"--{key}=")]
     return out + [f"--{key}={value}"]
 
 
-def tiny_cell(name: str) -> dict:
+def tiny_cell(name: str, manifest_data: dict = None, root: str = recipe.ROOT) -> dict:
     """The named cell of BENCHMARK.json cut to a CPU test's size."""
-    cell = copy.deepcopy(recipe.load_cell(name))
+    cell = copy.deepcopy(recipe.load_cell(name, manifest_data, root))
     cfg = cell["config"]
-    fam = cfg["model"]["family"]
-    flags = _set_flag(cfg["flags"], "arch", TINY_ARCHS[fam])
+    fam = family(cell)
+    flags = _set_flag(cfg["flags"], "arch", fam.ARCH)
     flags = _set_flag(flags, "batch_size", 2)
-    if fam == "deeplab2":
-        cfg["model"]["layers"] = [1, 1, 1, 1]
-        flags = _set_flag(flags, "crop_size", "33,33")
-        cfg["data"].update(written=6, val=2, size_range=[40, 60])
-        # the tiny net's logits are smaller: open the teacher's gate
-        cfg["init"]["classifier_gain"] = 8.0
-    else:
-        cfg["model"]["block_config"] = [1, 1, 1, 1]
-        flags = _set_flag(flags, "crop_size", "64,64")
-        flags = _set_flag(flags, "n_sup", 4)
-        cfg["data"].update(train=8, val=2, size=72)
+    for key, value in fam.FLAGS.items():
+        flags = _set_flag(flags, key, value)
     cfg["flags"] = flags
+    fam.cut(cfg)
     cell["workload"].update(warmup_iterations=1, trace_seconds=1)
-    cell["workload"]["limits"] = dict(TINY_LIMITS[fam])
+    cell["workload"]["limits"] = dict(fam.LIMITS)
     return cell
