@@ -9,6 +9,11 @@
   conv-BN-ReLU blocks -> 1x1 classifier;
 * logits resized (half-pixel bilinear) to the input size.
 
+Profiler spans (``torch.profiler.record_function``): ``model.aspp`` around
+the ASPP of both heads, ``model.decoder`` around the v3+ decoder (the
+low-level projection, the resize, the two 3x3 blocks and the classifier).
+They run in eager forwards; a CUDA-graph replay of a step runs none.
+
 Head convs take He-normal init; the backbone's N(0, 0.01). No BN affine is
 frozen, not even under --freeze_bn: only the running statistics freeze.
 
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.profiler import record_function
 
 from cutmix_seg_tpu_torch.models import weights
 from cutmix_seg_tpu_torch.models.common import (
@@ -92,7 +98,7 @@ class _DeepLab3Base(nn.Module):
             self.spatial.begin(self, x)
         in_hw = tuple(x.shape[1:3])
         taps = self.backbone.taps(x.to(self.dtype or x.dtype).permute(0, 3, 1, 2))
-        logits = self.classifier(self.head(taps))
+        logits = self.head(taps)
         return resize_bilinear_half_pixel(logits, in_hw, self.spatial).permute(0, 2, 3, 1)
 
 
@@ -106,10 +112,13 @@ class DeepLabV3Plus(_DeepLab3Base):
         self.classifier = Conv2d(256, num_classes, 1, init="he_normal")
 
     def head(self, taps):
-        low = self.project(taps["layer1"])
-        y = resize_bilinear_half_pixel(self.aspp(taps["layer4"]), tuple(low.shape[2:]),
-                                       self.spatial)
-        return self.head1(self.head0(torch.cat([low, y], dim=1)))
+        """The stage taps -> logits at the low-level map's size."""
+        with record_function("model.aspp"):
+            y = self.aspp(taps["layer4"])
+        with record_function("model.decoder"):
+            low = self.project(taps["layer1"])
+            y = resize_bilinear_half_pixel(y, tuple(low.shape[2:]), self.spatial)
+            return self.classifier(self.head1(self.head0(torch.cat([low, y], dim=1))))
 
 
 class DeepLabV3(_DeepLab3Base):
@@ -120,7 +129,10 @@ class DeepLabV3(_DeepLab3Base):
         self.classifier = Conv2d(256, num_classes, 1, init="he_normal")
 
     def head(self, taps):
-        return self.head0(self.aspp(taps["layer4"]))
+        """The stage taps -> logits at the last stage's size."""
+        with record_function("model.aspp"):
+            y = self.aspp(taps["layer4"])
+        return self.classifier(self.head0(y))
 
 
 def _label_imagenet(module: nn.Module):
