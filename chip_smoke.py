@@ -1,84 +1,67 @@
-"""Drive the PyTorch/CUDA port (cutmix_seg_tpu_torch) on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port (cutmix_seg_tpu_torch) on one NVIDIA GPU:
+the timings of the kernel table, and the runs of the paths that no
+benchmark cell takes.
 
     python3 chip_smoke.py        # from the repository root; needs one card
+
+The checks of the kernels and of the steps on the card are the tests
+marked ``cuda``, run with ``python -m pytest --noconftest <files> -m cuda``:
+tests/test_torch_card_ops.py (the CutMix kernel against its plain version;
+augmentation and the confusion matrix against the CPU),
+tests/test_torch_bn_train.py (the training-BN kernels against their plain
+version, alone and under gloo meshes), tests/test_torch_card_steps.py (the
+tiny steps against the CPU, the full-width steps),
+tests/test_torch_step_graph.py (the graphed step against the eager one) and
+tests/test_torch_deeplab3_spans.py. Phases 2 and 2b check the kernels they
+time before timing them, 2b with the BN card tests' own functions.
+benchmark/run.py times the lines of its cells; this script times none of
+them.
 
 Phases, in order; any failure exits non-zero before the result lines:
   1. build: print the card's name and power limit, compile every kernel under
      cutmix_seg_tpu_torch/csrc/ with nvcc (sm_90a) and time the build;
-  2. kernel vs plain: the CutMix kernel against its plain PyTorch version on
-     the card, bit-equal masks and blends, f32 and bf16, at the main-path
-     shape, the ISIC path's 10x224x224x3 and the edge cases (unaligned views,
-     ragged ends, 21 channels, 70,000 images); then timed with CUDA events at
-     the main-path shape (L2 flushed before each launch): the kernel in f32
-     and bf16 beside its bounds and beside torch.add of the same tensors (a
-     bandwidth yardstick), the plain version, the unaligned variant, the
-     timing's floor (one pixel), and the same calls after a flush that
-     leaves L2 clean; and the kernel and plain version at 224^2 and at the
-     Cityscapes recipe's 4x256x512x3;
-  2b. the training-BN kernels (csrc/bn_train.cu) against their plain
-     version at every BN input shape of DenseUNet-161 at 10x224^2 (the ISIC
-     recipe), bf16 and f32, forward and backward, with and without the
-     ReLU, and on the layouts the vector variant does not take (contiguous
-     NCHW, 12 channels, an unaligned view, a gradient in NCHW): outputs
-     within one ulp of the output dtype plus float32 summation order,
-     gradients and running statistics to float32 summation order, two runs
-     bit for bit, 3 launches a forward and 3 a backward; then each shape's
-     forward and backward device time (CUDA graphs of 20 calls, inputs
-     L2-warm as after the conv that wrote them) beside its byte bounds, the
-     plain version's and torch's own batch_norm (a yardstick the port never
-     calls) at five shapes, and their sum over one iteration's 4 forwards
-     and 2 backwards of the 166 BN calls;
-  3. small model, GPU vs CPU: the tiny DeepLab v2 in f32 (TF32 off) for two
-     steps of each algorithm (mask_mt, ICT, VAT with a fixed and an adaptive
-     radius, aug_mt) with injected rects / lambdas / noise / pair matrices,
-     held against the port's own CPU run;
-  3b. the other families at tiny depth, GPU vs CPU in f32 with training BN
-     and dropout (masks drawn on the host, the same for both runs): DenseNet
-     features (2, 2, 2, 2) in a DenseUNet with CutMix, ResUNet with ICT,
-     DeepLab v3 with VAT, v3+ with aug_mt, PSPNet with the CutMix pi-model
-     (layers (1, 1, 1, 1)); losses, parameters and the running statistics of
-     student and teacher held as in phase 3;
-  3c. gradient accumulation, GPU vs CPU in f32: the five tiny steps of phase
-     3 at grad_accum 2, each on the tiny DeepLab v2 with frozen BN and on a
-     tiny ResUNet with training BN and dropout (host-drawn masks), held as
-     in phase 3b;
-  4. full width: DeepLab v2 R101, bf16, the bench.py recipe at bs 10+10+10,
-     321x321: 3 warm-up and 10 timed steps through create_train_state and
-     make_mask_mt_step; losses finite, one kernel launch per step;
-  4b. the same for the ICT, VAT (adaptive radius 1.0, cons_weight 0.1) and
-     aug_mt steps of the recipe: finite losses, no kernel launch, ms/step and
-     peak memory beside phase 4; and what VAT's noise does in bf16;
-  4c. the two recipes' CutMix lines as bare steps at full width, 3 warm-up
-     and 10 timed, through the trainer's own step factory: DenseUNet-161 at
-     224^2 with training BN and dropout, SGD 0.1 poly (ISIC), and DeepLab v3+
-     R101 at 321^2 with frozen BN, Adam 1e-5 (Pascal); ms/step, img/s, peak
-     memory, one kernel launch per step, the DenseUNet's running statistics
-     moved and finite;
+  2. the CutMix kernel timed with CUDA events at the main-path shape (L2
+     flushed before each launch): in f32 and bf16 beside its bounds and
+     beside torch.add of the same tensors (a bandwidth yardstick), the plain
+     version, the unaligned variant, the timing's floor (one pixel), and the
+     same calls after a flush that leaves L2 clean; the kernel and plain
+     version at 224^2, at the Cityscapes recipe's 4x256x512x3 and at the
+     convergence sweep's 8x64x64x3; before the timings, the timed inputs'
+     masks and blends bit-equal to the plain version's;
+  2b. the training-BN kernels (csrc/bn_train.cu) at every BN input shape of
+     DenseUNet-161 at 10x224^2 (the ISIC recipe): each shape against the
+     plain version in bf16 and f32 (``_torch_card.bn_check``), the kernels
+     under one and two gloo ranks sharing the card
+     (``_torch_ranks.bn_card_check``), then each shape's forward and
+     backward device time (CUDA graphs of 20 calls, inputs L2-warm as after
+     the conv that wrote them) beside its byte bounds, the plain version's
+     and torch's own batch_norm (a yardstick the port never calls) at five
+     shapes, and their sum over one iteration's 4 forwards and 2 backwards
+     of the 166 BN calls;
+  4b. DeepLab v2 R101, bf16, the bench.py recipe at bs 10+10+10, 321x321:
+     the ICT, VAT (adaptive radius 1.0, cons_weight 0.1) and aug_mt steps of
+     the recipe, 3 warm-up and 10 timed: ms/step, img/s, peak memory; and
+     what VAT's noise does in bf16;
   4d. gradient accumulation at full width: the Pascal CutMix line's step
-     (DeepLab v2 R101, 10 + 10 + 10 in chunks of 5) at grad_accum 1 and 2,
-     and phase 4c's DenseUNet-161 ISIC step at grad_accum 2, beside phase
-     4c's grad_accum 1: ms/step, peak memory, one kernel launch per step;
-  5. augmentation and eval, card against CPU: host batches of a synthetic
-     VOC tree from the port's loader (10 images, 321x321 crops from 512x512
-     canvases) through augment_batch on the gather path (crop_rotate_scale,
-     reflect101) and the separable path (crop_scale_hung), colour jitter on,
-     with the same injected colour draws on both devices: labels bit-equal,
-     images and valid masks within float32 rounding; confusion_matrix at
-     10x512x512 bit-equal;
+     (DeepLab v2 R101, 10 + 10 + 10 in chunks of 5) and the DenseUNet-161
+     ISIC step at grad_accum 2 (their grad_accum 1 lines are the
+     pascal-cutmix and isic-cutmix cells'): ms/step, peak memory, launches;
   6. the trainer at full width: train_seg_semisup_mask_mt through job.submit
-     with the Pascal recipe on that VOC tree (R101, random init), 2 epochs x
-     10 iterations, then --resume to epoch 3: epoch lines with finite losses
-     and a VAL mIoU, one kernel launch per iteration, a checkpoint and
-     model.pt, the restored state equal to the saved one bit for bit, the
-     resumed run starting at epoch 3; the trainer's ms/iteration and img/s
-     beside phase 4's bare step;
+     with the Pascal recipe on a synthetic VOC tree (40 train and 10 val
+     images; R101, random init), 2 epochs x 10 iterations, then --resume to
+     epoch 3: epoch lines with finite losses and a VAL mIoU, one kernel
+     launch per iteration, a checkpoint and model.pt, the restored state
+     equal to the saved one bit for bit, the resumed run starting at epoch
+     3; eval ms per val batch and the checkpoint's host copy and save times
+     (the line's rate is the pascal-cutmix cell's);
   6b. the ICT, VAT and aug_mt trainers with the recipe's lines on that tree,
      1 epoch x 10 iterations each: an epoch line with finite losses and a VAL
      mIoU, a checkpoint, no kernel launch, ms/iteration;
   6c. on a synthetic ISIC zip, the ISIC recipe's seven lines at full width
      (--no_pretrained, 1 epoch x 4 iterations each, fill-holes eval), the
      CutMix line restored bit for bit (BN buffers and generator included)
-     and resumed for a second epoch; then the v3+ CutMix line on the
+     and resumed for a second epoch, its 2,988 training-BN kernel launches
+     an iteration (the engine's JSONL line); then the v3+ CutMix line on the
      synthetic VOC tree (1 epoch x 5 iterations);
   6d. the recipes' own datasets (1 epoch x 5 iterations each, eval at the
      end): the Pascal CutMix line with --dataset=pascal_aug and its
@@ -89,29 +72,23 @@ Phases, in order; any failure exits non-zero before the result lines:
      official zips; the
      ISIC CutMix line's first augmented batch with the store resident
      (auto) and streamed (off): labels bit-equal, images within 1e-5, the
-     copy and augmentation times of each, and the off line's ms/iteration
-     beside phase 6c's resident run; the phase-6 Pascal CutMix line with
-     --data_on_device on;
+     copy and augmentation times of each, and the off line's ms/iteration;
+     the phase-6 Pascal CutMix line with --data_on_device on;
   7. data parallelism and the multi-seed trainer: 7a the phase-6 CutMix line
      (1 epoch x 5 iterations) through job.submit under a process group made
      from torchrun's variables, NCCL at world 1 in this process (world 2,
      one card per rank, where the host has two cards): a finite epoch line
      and a VAL mIoU, one kernel launch per iteration, rank 0's checkpoint,
-     ms/iteration beside phase 6's; 7b two rank processes sharing the card
-     over gloo (NCCL refuses two ranks on one device): the tiny DeepLab v2
+     ms/iteration; 7b two rank processes sharing the card over gloo (NCCL
+     refuses two ranks on one device): the tiny DeepLab v2
      (CutMix, frozen BN) and the tiny ResUNet (CutMix, training BN,
      host-drawn dropout masks) for two steps at 2 + 2, injected global
      rects, against one process on the card over the global batch: the ranks
-     bit-identical, within phase 3b's bounds of the one-process run, one
-     launch per rank per step; 7c the multi-seed trainer with two seeds on
+     bit-identical, within check_small_run's bounds of the one-process run,
+     one launch per rank per step; 7c the multi-seed trainer with two seeds on
      that CutMix line (1 epoch x 5 iterations): both seeds' epoch lines and
      the aggregate, 10 kernel launches, each seed's checkpoint, ms/iteration
-     and the peak with two states resident; 7d the training-BN kernels under
-     a mesh: two gloo ranks sharing the card (``--rank-of bn_mesh``), each
-     on its half of a 4x96x28x28 batch, and one rank, against the kernels
-     over the whole batch in this process: one rank bit for bit, two ranks
-     within float32 summation order (weight and bias gradients summed over
-     the ranks), 4 launches a forward and 4 a backward;
+     and the peak with two states resident;
   8. spatial partitioning (--spatial_train, --eval_spatial at world 2), two
      rank processes sharing the card over gloo: 8a the tiny DeepLab v2's
      CutMix, Cutout, ICT, VAT (adaptive radius) and aug_mt steps and the
@@ -119,8 +96,8 @@ Phases, in order; any failure exits non-zero before the result lines:
      off, 2 steps, 36-row crops whose feature maps split unevenly and whose
      ASPP windows reach past the neighbouring rank) with each image's rows
      split over the ranks, against one process on the same batch: ranks
-     bit-identical, within phase 3's bounds, one launch per rank per CutMix
-     step and none on the other steps; 8b the
+     bit-identical, within check_small_run's bounds, one launch per rank
+     per CutMix step and none on the other steps; 8b the
      Cityscapes CutMix line (phase 6d's flags and converted frames) with
      --spatial_train 2 and --eval_spatial through job.submit, 2 epochs x 3
      iterations: the epoch line, epoch 2's ms/iteration, each rank's peak
@@ -141,8 +118,9 @@ Phases, in order; any failure exits non-zero before the result lines:
      and the HTTP host on a free port with 9a's artifact (/healthz, one
      /predict equal to 9a's labels); 9c the toy2d step of each model and
      norm at width 512, 3 steps on the CPU and the card in lockstep with
-     injected draws, phase 3's bounds, then run_toy2d_experiments.sh's three
-     lines through the port's CLI at 2 epochs: error, s/epoch, renders;
+     injected draws, check_small_run's bounds, then
+     run_toy2d_experiments.sh's three lines through the port's CLI at 2
+     epochs: error, s/epoch, renders;
   10. the convergence sweep and the patch-distance study: 10a
      tools/multi_seed_convergence with all six arms at the tool's widths
      (64x64, batch 8, 6 + 256 + 64 images a seed), 2 seeds x 100 iterations:
@@ -150,7 +128,7 @@ Phases, in order; any failure exits non-zero before the result lines:
      arm (one per seed per iteration on the CutMix arm, none elsewhere), the
      CutMix arm's steady ms/iteration (cuDNN's search off, as in the tool's
      own process), and that arm for 3 iterations on the CPU and the card in
-     lockstep (f32, TF32 off, injected rects, phase 3's bounds); 10b
+     lockstep (f32, TF32 off, injected rects, check_small_run's bounds); 10b
      analysis.patch_dist's distances card against CPU at a
      small size, then a 1024x2048 frame of phase 6d's official zip against
      32 anchors of 225^2 in f32 and in TF32 (ms, peak, the self-match
@@ -176,11 +154,11 @@ Phases, in order; any failure exits non-zero before the result lines:
      aug_mt and PSPNet's ICT steps (f32, TF32 off, training BN, host-drawn
      dropout masks, 2 steps; the U-Nets at 96 rows, whose average pool and
      nearest upsample straddle the split, PSPNet's pyramid bins on a 5-row
-     map) against one process: ranks bit-identical, within phase 3's
-     bounds, one launch per rank per CutMix step and none on the others;
-     12b the ISIC recipe's CutMix line (DenseUNet-161, bs 10, 224^2,
-     training BN, dropout, SGD 0.1 poly, --bin_fill_holes) on phase 6c's
-     synthetic ISIC zip and 12c PSPNet R101 (CutMix) and ResUNet-101
+     map) against one process: ranks bit-identical, within
+     check_small_run's bounds, one launch per rank per CutMix step and none
+     on the others; 12b the ISIC recipe's CutMix line (DenseUNet-161, bs
+     10, 224^2, training BN, dropout, SGD 0.1 poly, --bin_fill_holes) on
+     phase 6c's synthetic ISIC zip and 12c PSPNet R101 (CutMix) and ResUNet-101
      (aug_mt) on phase 6d's Cityscapes frames (bf16, bs 4, 256x512), each
      2 epochs x 2 iterations at world 1 in this process and then with
      --spatial_train 2 --eval_spatial: as 11a, the epoch lines,
@@ -198,7 +176,6 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
-import dataclasses
 import io
 import json
 import math
@@ -209,19 +186,14 @@ import subprocess
 import sys
 import tempfile
 import time
-import warnings
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from cutmix_seg_tpu_torch.aug.device import augment_batch, border_for_mode
-from cutmix_seg_tpu_torch.aug.params import GeomConfig
 from cutmix_seg_tpu_torch.core import checkpoint, job
 from cutmix_seg_tpu_torch.core.train_state import OptimizerConfig, create_train_state
 from cutmix_seg_tpu_torch.data import settings
-from cutmix_seg_tpu_torch.data.loader import HostBatchBuilder, train_stream
-from cutmix_seg_tpu_torch.data.sources import PascalVOCDataSource
 from cutmix_seg_tpu_torch.data.synthetic import (
     SBD_TRAIN_AUG,
     write_cityscapes_zips,
@@ -230,42 +202,25 @@ from cutmix_seg_tpu_torch.data.synthetic import (
     write_voc_tree,
 )
 from cutmix_seg_tpu_torch.masks.box_mask import BoxMaskConfig, sample_box_rects_np
-from cutmix_seg_tpu_torch.models.common import (
-    IMAGENET_MEAN,
-    IMAGENET_STD,
-    Dropout,
-    SegModel,
-    eval_mode,
-    init_weights,
-    label_params_by_path,
-)
-from cutmix_seg_tpu_torch.models.deeplab2 import DeepLab2, _param_label, resnet101_deeplab_imagenet
-from cutmix_seg_tpu_torch.models.deeplab3 import DeepLabV3, DeepLabV3Plus
+from cutmix_seg_tpu_torch.models.common import Dropout, eval_mode, init_weights
+from cutmix_seg_tpu_torch.models.deeplab2 import resnet101_deeplab_imagenet
+from cutmix_seg_tpu_torch.models.deeplab3 import DeepLabV3Plus
 from cutmix_seg_tpu_torch.models.denseunet import DenseUNet
 from cutmix_seg_tpu_torch.models.pspnet import PSPNet
 from cutmix_seg_tpu_torch.models.resunet import ResUNet
-from cutmix_seg_tpu_torch.models.common import BatchNorm2d
 from cutmix_seg_tpu_torch.ops import batchnorm, build
-from cutmix_seg_tpu_torch.ops.colour import (
-    ColourJitterConfig,
-    ColourParams,
-    sample_colour_params,
-)
 from cutmix_seg_tpu_torch.ops.cutmix import KERNEL, cutmix_blend, cutmix_blend_plain
 from cutmix_seg_tpu_torch.ops.iou import confusion_matrix
 from cutmix_seg_tpu_torch.eval.evaluator import normalise_eval_batch
 from cutmix_seg_tpu_torch.parallel.mesh import (
-    all_reduce_grads,
     data_mesh,
     local_rows,
     maybe_initialize_distributed,
 )
 from cutmix_seg_tpu_torch.parallel.spatial import gather_h, set_spatial, slice_h
-from cutmix_seg_tpu_torch.semisup.aug_cons import AugConsConfig, make_aug_cons_step
-from cutmix_seg_tpu_torch.semisup.ict import ICTConfig, make_ict_step, sample_beta
+from cutmix_seg_tpu_torch.semisup.ict import ICTConfig, make_ict_step
 from cutmix_seg_tpu_torch.semisup.mask_mt import MaskConsistencyConfig, make_mask_mt_step
-from cutmix_seg_tpu_torch.semisup.step_graph import GraphedStep
-from cutmix_seg_tpu_torch.semisup.stepcore import step_scalars
+from cutmix_seg_tpu_torch.semisup.aug_cons import AugConsConfig, make_aug_cons_step
 from cutmix_seg_tpu_torch.semisup.vat import (
     VATConfig,
     _normalize_per_sample,
@@ -278,24 +233,56 @@ from cutmix_seg_tpu_torch.train import aug_mt, common, ict, vat_mt
 from cutmix_seg_tpu_torch.train import multi_seed_mask_mt as mseed
 from cutmix_seg_tpu_torch.train.engine import TrainEngine
 from cutmix_seg_tpu_torch.train.mask_mt import build_spec, experiment, train_seg_semisup_mask_mt
+from tests._torch_card import (
+    ACCUM_K,
+    ACCUM_STEPS,
+    BATCH,
+    BN_EPS,
+    BN_MOMENTUM,
+    CITY_SHAPE,
+    CROP,
+    DENSENET_BN_LAUNCHES,
+    FULL_ALGOS,
+    ISIC_COMMON,
+    ISIC_LINES,
+    ISIC_SHAPE,
+    ITERS,
+    MAIN_SHAPE,
+    NUM_CLASSES,
+    RECIPE_COMMON,
+    RECIPE_FLAGS,
+    STATS_RTOL,
+    SWEEP_SHAPE,
+    TINY,
+    TINY_ALGOS,
+    TRAIN_ITERS,
+    V3PLUS_CUTMIX,
+    WARMUP,
+    HostMasks,
+    bn_check,
+    bn_inputs,
+    case_inputs,
+    check_small_run,
+    densenet_bn_calls,
+    make_full_step,
+    make_recipe_step,
+    parse_flags,
+    run_steps,
+    run_tiny,
+    running_stats,
+    tiny_batch,
+    tiny_deeplab2,
+    tiny_draws,
+    tiny_weights,
+)
+from tests._torch_ranks import bn_card_check
 
 # H100 SXM data sheet: HBM rate and the float32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 
-MAIN_SHAPE = (10, 321, 321, 3)  # bench.py: 10 unsupervised images per batch, 321^2
-ISIC_SHAPE = (10, 224, 224, 3)  # the ISIC recipe's CutMix blend: 10 images, 224^2
-CITY_SHAPE = (4, 256, 512, 3)  # the Cityscapes recipe's: 4 images, 256x512 crops
-SWEEP_SHAPE = (8, 64, 64, 3)  # the convergence sweep's CutMix arm: batch 8, 64^2 RGB
-BATCH, CROP, NUM_CLASSES = 10, 321, 21
-WARMUP, ITERS = 3, 10
-# phase 5: augmented images agree within float32 rounding: source coordinates
-# to a few ulps, times a step of up to 255 between neighbouring pixels, is
-# 2e-3 on the 0-255 scale, 5e-5 after normalisation (std 0.224); a valid
-# mask moves by the coordinate's own error (1e-5)
-AUG_NORM_ATOL, AUG_MASK_ATOL = 5e-5, 1e-5
-# phase 6: the synthetic VOC tree and the trainer's run
-VOC_TRAIN, VOC_VAL, TRAIN_ITERS = 40, 10, 10
+# phase 6: the synthetic VOC tree
+VOC_TRAIN, VOC_VAL = 40, 10
 
 
 def note(msg: str) -> None:
@@ -316,21 +303,6 @@ def phase_build() -> dict:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 note(f"[build] {name}: {line.strip()}")
     return {"nvidia_smi": smi}
-
-
-def _case_inputs(n, h, w, c, box_kw, dtype, seed, offset=0):
-    """x0, x1 (contiguous; at a storage offset of `offset` elements, so not
-    16-byte aligned when it is odd) and rects, made on the card from a seed."""
-    rects = sample_box_rects_np(BoxMaskConfig(**box_kw), n, (h, w),
-                                np.random.RandomState(seed))
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-
-    def image():
-        buf = torch.empty(offset + n * h * w * c, dtype=dtype, device="cuda")
-        buf[offset:] = torch.randn(n * h * w * c, generator=gen, device="cuda").to(dtype)
-        return buf[offset:].view(n, h, w, c)
-
-    return image(), image(), torch.from_numpy(rects).cuda()
 
 
 def _time_ms(fn, flush: torch.Tensor, iters: int = 50, clean: bool = False) -> float:
@@ -367,48 +339,26 @@ def _bound_ms(x0: torch.Tensor, rects: torch.Tensor):
 
 
 def phase_kernel_vs_plain() -> dict:
-    # name: (n, h, w, c, box config, invert, storage offset of x0 and x1)
+    """The CutMix kernel's times, and the timed inputs' masks and blends
+    bit-equal to the plain version's (every case: tests/test_torch_card_ops.py)."""
     half = dict(prop_range=(0.5, 0.5))
-    cases = {
-        "main_path": (*MAIN_SHAPE, half, True, 0),
-        "isic_224": (*ISIC_SHAPE, half, True, 0),
-        "cityscapes_256x512": (*CITY_SHAPE, half, True, 0),
-        "sweep_64": (*SWEEP_SHAPE, half, True, 0),
-        "two_boxes_64": (4, 64, 64, 3, dict(prop_range=(0.25, 0.75), n_boxes=2), True, 0),
-        "odd_height_no_invert": (2, 33, 48, 1, dict(prop_range=(0.5, 0.5), invert=False),
-                                 False, 0),
-        "outside_bounds": (6, 40, 52, 3, dict(prop_range=(0.3, 0.9), n_boxes=2,
-                                              within_bounds=False), True, 0),
-        # not 16-byte aligned: the kernel's one-element variant
-        "offset_view": (*MAIN_SHAPE, half, True, 1),
-        # 2907 elements: a ragged end in f32 and bf16, vectors across samples
-        "tail_and_straddle": (3, 17, 19, 3, half, True, 0),
-        "c21": (2, 41, 41, 21, half, True, 0),
-        # past the 65,535 grid-y limit of the per-sample grid
-        "batch_70000": (70000, 2, 3, 1, half, True, 0),
-    }
+    x0, x1, rects = case_inputs(*MAIN_SHAPE, half, torch.float32, 0)
+    b0, b1 = x0.bfloat16(), x1.bfloat16()
+    xu0, xu1, _ = case_inputs(*MAIN_SHAPE, half, torch.float32, 0, offset=1)
+    xi0, xi1, ri = case_inputs(*ISIC_SHAPE, half, torch.float32, 0)
+    xc0, xc1, rc = case_inputs(*CITY_SHAPE, half, torch.float32, 0)
+    bc0, bc1 = xc0.bfloat16(), xc1.bfloat16()
+    xs0, xs1, rs = case_inputs(*SWEEP_SHAPE, half, torch.float32, 0)
     max_err = 0.0
-    for seed, (name, (n, h, w, c, box_kw, invert, offset)) in enumerate(sorted(cases.items())):
-        for dtype in (torch.float32, torch.bfloat16):
-            x0, x1, rects = _case_inputs(n, h, w, c, box_kw, dtype, seed, offset)
-            if name == "outside_bounds" and not bool((rects < 0).any()):
-                raise RuntimeError("outside_bounds case has no negative coordinate")
-            mix_k, m_k = cutmix_blend(x0, x1, rects, invert)
-            mix_p, m_p = cutmix_blend_plain(x0, x1, rects, invert)
-            torch.cuda.synchronize()
-            err = max((mix_k.float() - mix_p.float()).abs().max().item(),
-                      (m_k.float() - m_p.float()).abs().max().item())
-            max_err = max(max_err, err)
-            equal = torch.equal(mix_k, mix_p) and torch.equal(m_k, m_p)
-            note(f"[kernel] {name} {str(dtype)[6:]} {tuple(x0.shape)} B={rects.shape[1]} "
-                 f"offset={offset}: bit-equal={equal} max_abs_err={err}")
-            if not equal:
-                raise RuntimeError(f"cutmix_blend kernel != plain on {name} {dtype}")
-
+    for a0, a1, r in ((x0, x1, rects), (b0, b1, rects), (xu0, xu1, rects), (xi0, xi1, ri),
+                      (xc0, xc1, rc), (bc0, bc1, rc), (xs0, xs1, rs)):
+        outs = zip(cutmix_blend(a0, a1, r), cutmix_blend_plain(a0, a1, r))
+        max_err = max([max_err] + [(k.float() - p.float()).abs().max().item() for k, p in outs])
+    note(f"[kernel] the timed inputs against the plain version: max_abs_err {max_err}")
+    if max_err != 0:
+        raise RuntimeError(f"cutmix_blend kernel != plain (max_abs_err {max_err})")
     # timing at the main-path shape (one box), L2 flushed before each launch
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    x0, x1, rects = _case_inputs(*MAIN_SHAPE, half, torch.float32, 0)
-    b0, b1 = x0.bfloat16(), x1.bfloat16()
     out, out_b = torch.empty_like(x0), torch.empty_like(b0)
     calls = {  # name: (call, bytes it moves)
         "kernel f32": (lambda: cutmix_blend(x0, x1, rects), _bound_ms(x0, rects)[1]),
@@ -433,12 +383,11 @@ def phase_kernel_vs_plain() -> dict:
              f"kernel's rate is {gbps[k] / gbps[f'torch.add {dt}']:.1%} of it")
     note(f"[kernel] plain version f32: {plain_ms * 1e3:.2f} us")
 
-    xu0, xu1, _ = _case_inputs(*MAIN_SHAPE, half, torch.float32, 0, offset=1)
     unaligned_ms = _time_ms(lambda: cutmix_blend(xu0, xu1, rects), flush)
     note(f"[kernel] main path f32, x0/x1 at offset 1 (one-element variant): "
          f"{unaligned_ms * 1e3:.2f} us, {n_bytes / unaligned_ms / 1e6:.1f} GB/s")
     # what this timing gives a call that moves almost nothing
-    p0, p1, pr = _case_inputs(1, 1, 1, 1, half, torch.float32, 0)
+    p0, p1, pr = case_inputs(1, 1, 1, 1, half, torch.float32, 0)
     floor_ms = _time_ms(lambda: cutmix_blend(p0, p1, pr), flush)
     one, one_out = torch.ones(1, device="cuda"), torch.empty(1, device="cuda")
     add1_ms = _time_ms(lambda: torch.add(one, one, out=one_out), flush)
@@ -449,7 +398,6 @@ def phase_kernel_vs_plain() -> dict:
         f"{name} {t * 1e3:.2f} us ({calls[name][1] / t / 1e6:.1f} GB/s)"
         for name, t in clean.items()))
     # the ISIC path's shape
-    xi0, xi1, ri = _case_inputs(*ISIC_SHAPE, half, torch.float32, 0)
     ms_224 = _time_ms(lambda: cutmix_blend(xi0, xi1, ri), flush)
     plain_224 = _time_ms(lambda: cutmix_blend_plain(xi0, xi1, ri), flush)
     bound_224, bytes_224, _ = _bound_ms(xi0, ri)
@@ -457,8 +405,6 @@ def phase_kernel_vs_plain() -> dict:
          f"{bound_224 * 1e3:.2f} us ({bytes_224 / 1e6:.2f} MB at 3.35 TB/s; "
          f"{bound_224 / ms_224:.1%} of the bound); plain version {plain_224 * 1e3:.2f} us")
     # the Cityscapes path's shape, f32 and bf16
-    xc0, xc1, rc = _case_inputs(*CITY_SHAPE, half, torch.float32, 0)
-    bc0, bc1 = xc0.bfloat16(), xc1.bfloat16()
     ms_city = _time_ms(lambda: cutmix_blend(xc0, xc1, rc), flush)
     ms_city_bf16 = _time_ms(lambda: cutmix_blend(bc0, bc1, rc), flush)
     plain_city = _time_ms(lambda: cutmix_blend_plain(xc0, xc1, rc), flush)
@@ -469,7 +415,6 @@ def phase_kernel_vs_plain() -> dict:
          f"{bound_city / ms_city:.1%} of the bound); bf16 {ms_city_bf16 * 1e3:.2f} us, bound "
          f"{bound_city_bf16 * 1e3:.2f} us; plain version f32 {plain_city * 1e3:.2f} us")
     # the convergence sweep's shape (phase 10a's CutMix arm)
-    xs0, xs1, rs = _case_inputs(*SWEEP_SHAPE, half, torch.float32, 0)
     ms_sweep = _time_ms(lambda: cutmix_blend(xs0, xs1, rs), flush)
     plain_sweep = _time_ms(lambda: cutmix_blend_plain(xs0, xs1, rs), flush)
     bound_sweep, bytes_sweep, by_sweep = _bound_ms(xs0, rs)
@@ -486,124 +431,10 @@ def phase_kernel_vs_plain() -> dict:
 
 
 # phase 2b: the training-BN kernels at DenseUNet-161's BN shapes (the ISIC recipe)
-BN_BATCH, BN_HW = 10, 224
 BN_REPS = 20  # calls in a timed graph
-BN_MOMENTUM, BN_EPS = 0.9, 1e-5
-# the layouts the vector variant does not take: (n, c, h, w, layout, relu)
-BN_EDGE_CASES = {
-    "nchw_96": (10, 96, 56, 56, "nchw", True),
-    "c12_channels_last": (4, 12, 9, 11, "channels_last", True),
-    "c6_channels_last": (3, 6, 7, 5, "channels_last", False),
-    "offset_view_64": (2, 64, 28, 28, "offset", True),
-    "grad_in_nchw_192": (10, 192, 28, 28, "grad_nchw", True),
-}
 # the shapes timed beside the plain version and torch's batch_norm
 BN_TIMED_SHAPES = ((10, 64, 224, 224), (10, 96, 112, 112), (10, 336, 56, 56),
                    (10, 2064, 14, 14), (10, 2160, 7, 7))
-
-
-def densenet_bn_calls(device: str, batch: int = BN_BATCH, hw: int = BN_HW) -> list:
-    """Every BN call of one DenseUNet-161 forward at (batch, hw, hw, 3) in
-    bf16: (module name, NCHW shape, relu, input channels-last)."""
-    model = DenseUNet(2, dtype=torch.bfloat16).to(device).eval()
-    calls = []
-
-    def spy(name):
-        def hook(module, args, kwargs):
-            x = args[0]
-            calls.append((name, tuple(x.shape), bool(kwargs.get("relu", False)),
-                          x.is_contiguous(memory_format=torch.channels_last)))
-        return hook
-
-    for name, m in model.named_modules():
-        if isinstance(m, BatchNorm2d):
-            m.register_forward_pre_hook(spy(name), with_kwargs=True)
-    with torch.no_grad():
-        model(torch.zeros(batch, hw, hw, 3, device=device))
-    return calls
-
-
-def _bn_inputs(n, c, h, w, dtype, layout, seed):
-    """x, dy and the module's vectors on the card from a seed."""
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    scale = torch.rand(1, c, 1, 1, generator=gen, device="cuda") * 2.8 + 0.2
-    x = torch.randn(n, c, h, w, generator=gen, device="cuda") * scale + 0.5
-    dy = torch.randn(n, c, h, w, generator=gen, device="cuda")
-    x, dy = x.to(dtype), dy.to(dtype)
-    if layout in ("channels_last", "grad_nchw"):
-        x = x.contiguous(memory_format=torch.channels_last)
-    if layout == "channels_last":
-        dy = dy.contiguous(memory_format=torch.channels_last)
-    if layout == "offset":  # channels-last, one element past a 16-byte boundary
-        buf = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
-        buf[1:] = x.permute(0, 2, 3, 1).reshape(-1)
-        x = buf[1:].view(n, h, w, c).permute(0, 3, 1, 2)
-    vectors = {"weight": torch.rand(c, generator=gen, device="cuda") + 0.5,
-               "bias": torch.rand(c, generator=gen, device="cuda") - 0.5,
-               "running_mean": torch.rand(c, generator=gen, device="cuda") - 0.5,
-               "running_var": torch.rand(c, generator=gen, device="cuda") + 0.5}
-    return x, dy, vectors
-
-
-def off_the_kink(x, dy, vectors):
-    """dy zeroed where the output before the ReLU lies within 1e-3 of 0:
-    there the ReLU's gate follows the statistics' last bits, which two
-    summation orders round apart."""
-    with torch.no_grad():
-        y = batchnorm.batch_norm_train_plain(x.float(), vectors["weight"], vectors["bias"], None,
-                                             BN_MOMENTUM, BN_EPS)
-    return dy.masked_fill(y.abs() < 1e-3, 0)
-
-
-def _bn_call(fn, x, dy, vectors, relu):
-    """fn's forward and backward: (y, dx, dweight, dbias, running mean, running var)."""
-    x = x.detach().requires_grad_(True)
-    weight = vectors["weight"].clone().requires_grad_(True)
-    bias = vectors["bias"].clone().requires_grad_(True)
-    running = (vectors["running_mean"].clone(), vectors["running_var"].clone())
-    y = fn(x, weight, bias, running, BN_MOMENTUM, BN_EPS, None, relu)
-    y.backward(dy)
-    return y.detach(), x.grad, weight.grad, bias.grad, running[0], running[1]
-
-
-def _bn_gap(a: torch.Tensor, b: torch.Tensor, rtol: float, floor: float) -> float:
-    """max |a - b| / (rtol * |b| + floor * max |b|): at most 1 where a is
-    within rtol of b, or within floor of b's scale near 0."""
-    a, b = a.float(), b.float()
-    scale = rtol * b.abs() + floor * b.abs().max().clamp_min(1e-30)
-    return ((a - b).abs() / scale).max().item()
-
-
-def _bn_check(name, shape, dtype, layout, relu, seed) -> dict:
-    """The kernels against the plain version on the card, and twice."""
-    x, dy, vectors = _bn_inputs(*shape, dtype, layout, seed)
-    if relu:
-        dy = off_the_kink(x, dy, vectors)
-    before = collections.Counter(build.launch_counts)
-    got = _bn_call(batchnorm.batch_norm_train, x, dy, vectors, relu)
-    launches = collections.Counter(build.launch_counts) - before
-    again = _bn_call(batchnorm.batch_norm_train, x, dy, vectors, relu)
-    want = _bn_call(batchnorm.batch_norm_train_plain, x, dy, vectors, relu)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(got, again)):
-        raise RuntimeError(f"2b {name} {dtype}: two runs of the kernels differ")
-    if launches != collections.Counter({k: 1 for k in batchnorm.KERNELS}):
-        raise RuntimeError(f"2b {name}: launches {dict(launches)}, expected one of each kernel")
-    bf16 = dtype == torch.bfloat16
-    # one ulp of the output dtype, relative (2^-8 to 2^-7 in bf16), beside
-    # float32's rounding of the statistics' summation order near 0
-    gaps = {"y": _bn_gap(got[0], want[0], 2 ** -7 if bf16 else 1e-5, 1e-4),
-            "x_grad": _bn_gap(got[1], want[1], 2 ** -6 if bf16 else 1e-4, 1e-3)}
-    for k, a, b in zip(("weight_grad", "bias_grad", "running_mean", "running_var"),
-                       got[2:], want[2:]):
-        gaps[k] = _bn_gap(a, b, 1e-4, 1e-4)
-    bad = {k: v for k, v in gaps.items() if not v <= 1.0}
-    if bad:
-        raise RuntimeError(f"2b {name} {dtype} relu={relu}: kernels against plain over their "
-                           f"tolerance: {bad}")
-    differ = (got[0] != want[0]).float().mean().item()
-    return {"gaps": gaps, "y_differ_share": differ,
-            "x_grad_channels_last": got[1].is_contiguous(memory_format=torch.channels_last)}
 
 
 def _graph_ms(fn, reps: int = BN_REPS, replays: int = 10) -> float:
@@ -638,7 +469,7 @@ def _graph_ms(fn, reps: int = BN_REPS, replays: int = 10) -> float:
 def _bn_times(fn, shape, relu: bool = True) -> tuple:
     """(forward ms, backward ms) of fn at a bf16 channels-last shape: the
     backward as the forward-and-backward graph less the forward's."""
-    x, dy, vectors = _bn_inputs(*shape, torch.bfloat16, "channels_last", 0)
+    x, dy, vectors = bn_inputs(*shape, torch.bfloat16, "channels_last", 0)
     x.requires_grad_(True)
     weight = vectors["weight"].requires_grad_(True)
     bias = vectors["bias"].requires_grad_(True)
@@ -670,32 +501,29 @@ def _bn_bytes(shape, dtype_bytes: int = 2) -> dict:
 
 
 def phase_bn_kernels() -> dict:
+    """The training-BN kernels against their plain version at every BN
+    input shape of DenseUNet-161 and under one and two gloo ranks (the
+    checks of tests/test_torch_bn_train.py's card tests), then their times."""
     t0 = time.perf_counter()
     calls = densenet_bn_calls("cuda")
     shapes = collections.Counter((shape, relu) for _, shape, relu, _ in calls)
     n_cl = sum(cl for *_, cl in calls)
-    note(f"[bn] DenseUNet-161 bf16 at {BN_BATCH}x{BN_HW}^2: {len(calls)} BN calls a forward, "
+    note(f"[bn] DenseUNet-161 bf16 at 10x224^2: {len(calls)} BN calls a forward, "
          f"{len(shapes)} shapes; {n_cl} inputs channels-last, {len(calls) - n_cl} not; "
          f"{sum(r for *_, r, _ in calls)} with the ReLU")
-    worst, differ = collections.defaultdict(float), 0.0
-    for i, ((shape, relu), _) in enumerate(sorted(shapes.items())):
+    worst = collections.defaultdict(float)
+    for seed, (shape, relu) in enumerate(sorted(shapes)):
         for dtype in (torch.bfloat16, torch.float32):
-            r = _bn_check(f"densenet {shape}", shape, dtype, "channels_last", relu, i)
-            for k, v in r["gaps"].items():
-                worst[f"{k} {str(dtype)[6:]}"] = max(worst[f"{k} {str(dtype)[6:]}"], v)
-            if dtype == torch.bfloat16:
-                differ = max(differ, r["y_differ_share"])
+            for leaf, gap in bn_check(shape, "channels_last", relu, dtype, seed).items():
+                key = f"{leaf} {str(dtype)[6:]}"
+                worst[key] = max(worst[key], gap)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bn_") as tmp:
+        mesh_worst = max(bn_card_check(tmp, world) for world in (1, 2))
     note(f"[bn] kernels against plain at every shape, bf16 and f32, forward and backward: "
-         f"two runs bit-equal, worst gap over tolerance (1 = at it) "
-         f"{ {k: round(v, 4) for k, v in sorted(worst.items())} }; bf16 outputs that differ "
-         f"at all: at most {differ:.4%} of a call's")
-    for name, (n, c, h, w, layout, relu) in sorted(BN_EDGE_CASES.items()):
-        for dtype in (torch.bfloat16, torch.float32):
-            r = _bn_check(name, (n, c, h, w), dtype, layout, relu, 99)
-        note(f"[bn] {name} ({n}, {c}, {h}, {w}) {layout}: within tolerance in bf16 and f32, "
-             f"gaps {({k: round(v, 4) for k, v in r['gaps'].items()})}, input gradient "
-             f"channels-last {r['x_grad_channels_last']}")
-
+         f"two runs bit-equal, one launch of each kernel, worst gap over tolerance (1 = at "
+         f"it) { {k: round(v, 4) for k, v in sorted(worst.items())} }; one gloo rank bit for "
+         f"bit, two within tolerance (worst gap {mesh_worst:.4f}); "
+         f"{time.perf_counter() - t0:.1f} s")
     per_shape = {}
     for shape, _ in sorted({(s, 0) for s, _ in shapes}):
         per_shape[shape] = _bn_times(batchnorm.batch_norm_train, shape)
@@ -732,494 +560,26 @@ def phase_bn_kernels() -> dict:
                          for k, v in timed[shape].items()))
     note(f"[bn] phase 2b {time.perf_counter() - t0:.1f} s")
     return {"calls": len(calls), "shapes": len(shapes), "worst": dict(worst),
-            "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "iteration_ms": iteration_ms,
+            "mesh_worst": mesh_worst, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "iteration_ms": iteration_ms,
             "iteration_bound_ms": iteration_bound_ms, "timed": timed}
 
 
-# phase 7d: the training-BN kernels under a mesh
-BN_MESH_SHAPE = (4, 96, 28, 28)
-BN_MESH_CASES = [(dtype, relu) for dtype in (torch.bfloat16, torch.float32)
-                 for relu in (True, False)]
-
-
-def _bn_mesh_run(mesh, dtype, relu) -> dict:
-    """The kernels on this rank's rows of the global batch (made on the
-    host from a seed): outputs, input gradient, the weight and bias
-    gradients summed over the ranks, running statistics, launches."""
-    gen = torch.Generator().manual_seed(23)
-    x = (torch.randn(BN_MESH_SHAPE, generator=gen) * 1.5 + 0.3).to(dtype)
-    dy = torch.randn(BN_MESH_SHAPE, generator=gen).to(dtype)
-    vectors = {"weight": torch.rand(BN_MESH_SHAPE[1], generator=gen) + 0.5,
-               "bias": torch.rand(BN_MESH_SHAPE[1], generator=gen) - 0.5}
-    if relu:
-        dy = off_the_kink(x, dy, vectors)
-    weight = vectors["weight"].cuda().requires_grad_(True)
-    bias = vectors["bias"].cuda().requires_grad_(True)
-    x, dy = (local_rows(t, mesh).cuda().contiguous(memory_format=torch.channels_last)
-             for t in (x, dy))
-    x.requires_grad_(True)
-    running = (torch.zeros(BN_MESH_SHAPE[1], device="cuda"),
-               torch.ones(BN_MESH_SHAPE[1], device="cuda"))
-    before = collections.Counter(build.launch_counts)
-    y = batchnorm.batch_norm_train(x, weight, bias, running, BN_MOMENTUM, BN_EPS, mesh, relu)
-    fwd = collections.Counter(build.launch_counts) - before
-    y.backward(dy)
-    if mesh is not None:
-        all_reduce_grads([weight, bias])
-    torch.cuda.synchronize()
-    return {"y": y.detach().cpu(), "x_grad": x.grad.cpu(), "weight_grad": weight.grad.cpu(),
-            "bias_grad": bias.grad.cpu(), "running_mean": running[0].cpu(),
-            "running_var": running[1].cpu(), "fwd_launches": sum(fwd.values()),
-            "launches": sum((collections.Counter(build.launch_counts) - before).values())}
-
-
-def _bn_mesh_rank() -> dict:
-    """One rank of 7d (gloo on the one card)."""
-    maybe_initialize_distributed("cuda:0", backend="gloo")
-    try:
-        mesh = data_mesh()
-        return {"world": mesh.size, "runs": {case: _bn_mesh_run(mesh, *case)
-                                             for case in BN_MESH_CASES}}
-    finally:
-        dist.destroy_process_group()
-
-
-def phase_bn_mesh(tmp: str) -> dict:
-    t0 = time.perf_counter()
-    one = {case: _bn_mesh_run(None, *case) for case in BN_MESH_CASES}
-    worst = 0.0
-    for world in (1, 2):
-        ranks = _spawn_ranks("bn_mesh", world, tmp, 300)
-        if any(r["world"] != world for r in ranks):
-            raise RuntimeError(f"7d: the ranks did not run as {world} gloo ranks")
-        for case in BN_MESH_CASES:
-            want = one[case]
-            rows = BN_MESH_SHAPE[0] // world
-            for r, rank in enumerate(ranks):
-                got = rank["runs"][case]
-                if (got["fwd_launches"], got["launches"]) != (4, 8):
-                    raise RuntimeError(f"7d world {world} {case}: launches "
-                                       f"{got['fwd_launches']} / {got['launches']}, want 4 / 8")
-                for k in ("y", "x_grad", "weight_grad", "bias_grad", "running_mean",
-                          "running_var"):
-                    w = want[k][r * rows:(r + 1) * rows] if k in ("y", "x_grad") else want[k]
-                    if world == 1:
-                        if not torch.equal(got[k], w):
-                            raise RuntimeError(f"7d one rank {case} {k}: not the unmeshed bits")
-                        continue
-                    bf16 = case[0] == torch.bfloat16 and k in ("y", "x_grad")
-                    gap = _bn_gap(got[k], w, 2 ** -6 if bf16 else 1e-4, 1e-3)
-                    worst = max(worst, gap)
-                    if not gap <= 1.0:
-                        raise RuntimeError(f"7d two ranks {case} rank {r} {k}: gap {gap:.3f}")
-    note(f"[ddp] 7d: BN kernels on {BN_MESH_SHAPE} bf16 and f32, ReLU on and off: one gloo "
-         f"rank bit for bit the unmeshed kernels, two ranks within tolerance (worst gap "
-         f"{worst:.4f}), 4 launches a forward and 4 a backward per rank; "
-         f"{time.perf_counter() - t0:.1f} s")
-    return {"worst": worst}
-
-
-def _tiny_deeplab2():
-    return DeepLab2(4, layers=(1, 1, 1, 1))
-
-
-def _tiny_label(module):
-    return label_params_by_path(module, [("backbone", "pretrained"), ("features", "pretrained")])
-
-
-def _tiny_state(device, sd, make_module=_tiny_deeplab2, mean_teacher=True):
-    label = _param_label if make_module is _tiny_deeplab2 else _tiny_label
-    model = SegModel("tiny", make_module(), np.zeros(3), np.ones(3), (1, 1), label)
-    state, opt = create_train_state(model, OptimizerConfig(learning_rate=3e-4), 0,
-                                    device=device, mean_teacher=mean_teacher, pretrained=False)
-    for net in (state.student, state.teacher):
-        if net is not None:
-            net.load_state_dict(sd)
-    return model, state, opt
-
-
-def _tiny_weights(seed, module=None):
-    """He-scaled convs (classifier x0.1) and random BN statistics, so the
-    random model has O(1) logits and its confidence gate is exercised."""
-    rng = np.random.RandomState(seed)
-    sd = (module or _tiny_deeplab2()).state_dict()
-    out = {}
-    for k, v in sd.items():
-        shape = tuple(v.shape)
-        if v.dim() == 4:
-            gain = 0.1 if k.startswith("layer5") or "classifier" in k or "final_clf" in k \
-                else 1.0
-            val = rng.randn(*shape) * gain * math.sqrt(2.0 / np.prod(shape[1:]))
-        elif k.endswith("running_var"):
-            val = rng.uniform(0.5, 2.0, shape)
-        elif k.endswith("running_mean"):
-            val = rng.uniform(-0.5, 0.5, shape)
-        elif k.endswith("weight"):
-            val = rng.uniform(0.5, 1.5, shape)
-        else:
-            val = rng.uniform(-0.2, 0.2, shape)
-        out[k] = torch.from_numpy(val.astype(np.float32))
-    return out
-
-
-def _tiny_batch(algo: str, n: int, h: int, w: int, rng) -> dict:
-    """numpy batch of the tiny model's steps. ICT's and VAT's student images
-    differ from the teacher's, as colour jitter makes them."""
-    nb = {"sup_x": rng.randn(n, h, w, 3).astype(np.float32),
-          "sup_y": rng.randint(0, 4, size=(n, h, w)).astype(np.int64)}
-
-    def img():
-        return rng.randn(n, h, w, 3).astype(np.float32)
-
-    def mask():
-        return (rng.rand(n, h, w, 1) > 0.2).astype(np.float32)
-
-    if algo in ("mask_mt", "ict"):
-        for k in ("ux0", "ux1"):
-            nb[f"{k}_tea"] = img()
-            nb[f"{k}_stu"] = nb[f"{k}_tea"] + (0.3 * img() if algo == "ict" else 0.0)
-        nb["um0"], nb["um1"] = mask(), mask()
-    elif algo.startswith("vat"):
-        nb["ux_tea"] = img()
-        nb["ux_stu"] = nb["ux_tea"] + 0.3 * img()
-        nb["um"] = mask()
-    else:
-        nb["ux0"], nb["ux1"], nb["um0"], nb["um1"] = img(), img(), mask(), mask()
-        # the pair transform: rotation up to 0.3 rad, shifts up to 0.4, so
-        # some taps leave the image
-        ang, t = rng.uniform(-0.3, 0.3, n), rng.uniform(-0.4, 0.4, (n, 2))
-        xf = np.zeros((n, 2, 3), np.float32)
-        xf[:, 0, 0], xf[:, 0, 1], xf[:, 1, 0], xf[:, 1, 1] = (np.cos(ang), -np.sin(ang),
-                                                              np.sin(ang), np.cos(ang))
-        xf[:, :, 2] = t
-        nb["xf0_to_1"] = xf
-    return nb
-
-
-def _tiny_draws(algo: str, n: int, h: int, w: int, rng) -> dict:
-    """One step's injected draws, the same on both devices (the JAX steps
-    draw them from their key, the port's from the state's generator)."""
-    if algo == "mask_mt":
-        return {"rects": sample_box_rects_np(BoxMaskConfig((0.5, 0.5)), n, (h, w), rng)}
-    if algo == "ict":
-        g = torch.Generator().manual_seed(int(rng.randint(1 << 30)))
-        return {"lam": sample_beta(0.5, (n, 1, 1, 1), g).numpy()}
-    if algo.startswith("vat"):
-        eps = _normalize_per_sample(torch.from_numpy(rng.randn(n, h, w, 3).astype(np.float32)))
-        return {"eps0": (eps * (1.0e-6 * h * w / 1000.0)).numpy()}
-    return {}  # aug_mt draws nothing
-
-
-# phase 3: (config, step factory); the gate threshold is one the tiny
-# model's confidences cross
-TINY_ALGOS = {
-    "mask_mt": (MaskConsistencyConfig(conf_thresh=0.34), make_mask_mt_step),
-    "ict": (ICTConfig(ict_alpha=0.5, conf_thresh=0.34), make_ict_step),
-    "vat_fixed": (VATConfig(vat_radius=0.5, conf_thresh=0.34), make_vat_step),
-    "vat_adaptive": (VATConfig(vat_radius=1.0, adaptive_vat_radius=True, cons_weight=0.1,
-                               conf_thresh=0.34), make_vat_step),
-    "aug_mt": (AugConsConfig(conf_thresh=0.34), make_aug_cons_step),
-}
-
-
-# phase 3: BN running statistics after the first step (its forwards ran on
-# equal weights on both devices), relative to max(1, |value|)
-STATS_RTOL = 1e-4
-
-
-def _check_small_run(name: str, runs: dict, n_px: int, steps: int, lr: float,
-                     labels=("cpu", "cuda")) -> None:
-    """Hold a tiny model's CUDA run against its CPU run: conv sums run in
-    another order on the card, so rtol 1e-4 on the CE; the gate is a mean of
-    0/1 values, so a pixel whose confidence lies within rounding of the
-    threshold may flip: allow two flips; Adam moves a noise-level gradient's
-    element by up to 2 lr per step, so every parameter (student and teacher)
-    is held within that after the last step. The running statistics of a
-    later step come from those diverged weights (several percent apart in a
-    random tiny ResUNet's decoder after two steps), so they are held after
-    the first step, within STATS_RTOL."""
-    one_gate = 1.0 / n_px
-    for i, (mc, mg) in enumerate(zip(runs["cpu"][0], runs["cuda"][0])):
-        note(f"[small] {name} step {i}: {labels[0]} {mc} {labels[1]} {mg}")
-        ok = (math.isclose(mc["sup_loss"], mg["sup_loss"], rel_tol=1e-4)
-              and abs(mc["conf_rate"] - mg["conf_rate"]) <= 2 * one_gate + 1e-7
-              and math.isclose(mc["cons_loss"], mg["cons_loss"],
-                               rel_tol=1e-4 + 4 * one_gate))
-        if not ok:
-            raise RuntimeError(f"small-model {name} step {i}: {labels[1]} and {labels[0]} "
-                               "disagree")
-    first, last = ({k: (runs["cpu"][1][i][k], runs["cuda"][1][i][k]) for k in runs["cpu"][1][i]}
-                   for i in (0, -1))
-    worst = max((a - b).abs().max().item() for k, (a, b) in last.items() if "running" not in k)
-    stats = [((a - b).abs() / a.abs().clamp_min(1.0)).max().item()
-             for k, (a, b) in first.items() if "running" in k]
-    worst_stats = max(stats, default=0.0)
-    note(f"[small] {name}: max |param {labels[0]} - {labels[1]}| after {steps} steps: "
-         f"{worst:.3g} "
-         f"(bound 2*lr*steps = {2 * lr * steps:.3g}); running statistics after step 1: "
-         f"max relative difference {worst_stats:.3g} over {len(stats)} (bound {STATS_RTOL})")
-    if worst > 2 * lr * steps + 1e-6 or worst_stats > STATS_RTOL:
-        raise RuntimeError(f"small-model {name} states diverge between {labels[1]} and "
-                           f"{labels[0]}")
-
-
-def _run_tiny(device, sd, make_module, cfg, make_step, nb, draws, masks=None) -> tuple:
-    """Steps of a tiny model on ``device``: (metrics per step, every tensor
-    of the student's and the teacher's state dicts on the host after each
-    step)."""
-    model, state, opt = _tiny_state(device, sd, make_module, cfg.mean_teacher)
-    step = make_step(model, opt, cfg)
-    if isinstance(step, GraphedStep):
-        # the eager body on both devices: host-drawn dropout masks are copied
-        # to the device inside the step, which a CUDA graph cannot hold
-        body = step.body
-
-        def step(state, batch, ramp, rects=None):
-            return body(state, batch, step_scalars(opt, ramp, state.generator.device), rects)
-    batch = {k: torch.from_numpy(v).to(device) for k, v in nb.items()}
-    metrics, tensors = [], []
-    for d in draws:
-        if masks is not None:
-            masks.k = 0
-        kw = {k: torch.from_numpy(v).to(device) for k, v in d.items()}
-        state, m = step(state, batch, 1.0, **kw)
-        metrics.append({k: v.item() for k, v in m.items()})
-        # copies: a CPU state dict's tensors are the ones the next step updates
-        tensors.append({f"{part}.{k}": v.to("cpu", copy=True)
-                        for part, net in (("student", state.student), ("teacher", state.teacher))
-                        if net is not None for k, v in net.state_dict().items()})
-    return metrics, tensors
-
-
-def phase_small_step() -> None:
-    """Each algorithm's step on the tiny model, GPU against CPU: f32, TF32
-    off, two steps with the same injected draws."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    n, h, w, steps, lr = 2, 33, 33, 2, 3e-4
-    sd = _tiny_weights(3)
-    for algo, (cfg, make_step) in TINY_ALGOS.items():
-        rng = np.random.RandomState(0)
-        nb = _tiny_batch(algo, n, h, w, rng)
-        draws = [_tiny_draws(algo, n, h, w, rng) for _ in range(steps)]
-        runs = {d: _run_tiny(d, sd, _tiny_deeplab2, cfg, make_step, nb, draws)
-                for d in ("cpu", "cuda")}
-        _check_small_run(algo, runs, n * h * w, steps, lr)
-
-
-TINY = (1, 1, 1, 1)
-# phase 3b: name -> (module, (n, h, w), draws of TINY_ALGOS' algorithm, config,
-# step factory); every batch-statistics BN sees 4 or more values per channel
-TINY_FAMILIES = {
-    "denseunet_cutmix": (lambda: DenseUNet(4, block_config=(2, 2, 2, 2)), (2, 64, 64),
-                         "mask_mt", MaskConsistencyConfig(conf_thresh=0.34, freeze_bn=False),
-                         make_mask_mt_step),
-    "resunet_ict": (lambda: ResUNet(4, layers=TINY), (2, 64, 64), "ict",
-                    ICTConfig(ict_alpha=0.5, conf_thresh=0.34, freeze_bn=False), make_ict_step),
-    "deeplabv3_vat": (lambda: DeepLabV3(4, layers=TINY), (4, 33, 33), "vat_fixed",
-                      VATConfig(vat_radius=0.5, conf_thresh=0.34, freeze_bn=False),
-                      make_vat_step),
-    "deeplabv3plus_aug_mt": (lambda: DeepLabV3Plus(4, layers=TINY), (4, 41, 41), "aug_mt",
-                             AugConsConfig(conf_thresh=0.34, freeze_bn=False),
-                             make_aug_cons_step),
-    "pspnet_cutmix_pi": (lambda: PSPNet(4, layers=TINY), (4, 50, 50), "mask_mt",
-                         MaskConsistencyConfig(conf_thresh=0.34, freeze_bn=False,
-                                               mean_teacher=False), make_mask_mt_step),
-}
-
-
-class _HostMasks:
-    """Dropout keep masks by call order, drawn on the host (call k of a
-    step from seed 500 + k) and copied to the forward's device, so both
-    devices' runs drop the same activations."""
-
-    def __init__(self):
-        self.k = 0
-
-    def draw(self, drop: Dropout, x: torch.Tensor) -> torch.Tensor:
-        n, c, h, w = x.shape
-        keep = np.random.RandomState(500 + self.k).rand(n, h, w, c) < 1.0 - drop.rate
-        self.k += 1
-        return torch.from_numpy(keep).to(x.device).permute(0, 3, 1, 2)
-
-
-def phase_small_step_families() -> None:
-    """The other families at tiny depth, GPU against CPU: f32, TF32 off,
-    training BN, the same dropout masks and draws, two steps."""
-    steps, lr = 2, 3e-4
-    masks = _HostMasks()
-    draw_keep = Dropout.draw_keep
-    Dropout.draw_keep = lambda self, x: masks.draw(self, x)
-    try:
-        for name, (make_module, (n, h, w), algo, cfg, make_step) in TINY_FAMILIES.items():
-            sd = _tiny_weights(4, make_module())
-            rng = np.random.RandomState(0)
-            nb = _tiny_batch(algo, n, h, w, rng)
-            draws = [_tiny_draws(algo, n, h, w, rng) for _ in range(steps)]
-            runs = {d: _run_tiny(d, sd, make_module, cfg, make_step, nb, draws, masks)
-                    for d in ("cpu", "cuda")}
-            if masks.k == 0:
-                raise RuntimeError(f"{name}: no dropout mask was drawn")
-            _check_small_run(name, runs, n * h * w, steps, lr)
-            moved = [k for k, v in runs["cuda"][1][-1].items()
-                     if k.startswith("student.") and "running" in k
-                     and not torch.equal(v, sd[k[len("student."):]])]
-            if not moved:
-                raise RuntimeError(f"{name}: training BN left the running statistics as they were")
-            note(f"[small] {name}: {len(moved)} running statistics of the student moved; "
-                 f"{masks.k} dropout masks per step")
-    finally:
-        Dropout.draw_keep = draw_keep
-
-
-# phase 3c: grad_accum and, per BN mode, (module, (n, h, w)): chunks of two
-# images, so every batch-statistics BN of the ResUNet sees 8 values per
-# channel
-ACCUM_K = 2
-ACCUM_MODELS = {"frozen BN": (_tiny_deeplab2, (4, 33, 33)),
-                "training BN + dropout": (lambda: ResUNet(4, layers=TINY), (4, 64, 64))}
-
-
-def phase_small_step_accum() -> None:
-    """Phase 3's steps at grad_accum 2, GPU against CPU: f32, TF32 off,
-    the same injected draws and dropout masks, two steps."""
-    steps, lr = 2, 3e-4
-    masks = _HostMasks()
-    draw_keep = Dropout.draw_keep
-    Dropout.draw_keep = lambda self, x: masks.draw(self, x)
-    try:
-        with warnings.catch_warnings():
-            # the batch-mean gate's per-chunk warning (the recipes' gate)
-            warnings.simplefilter("ignore", UserWarning)
-            for algo, (cfg1, make_step) in TINY_ALGOS.items():
-                for mode, (make_module, (n, h, w)) in ACCUM_MODELS.items():
-                    training = mode != "frozen BN"
-                    cfg = dataclasses.replace(cfg1, grad_accum=ACCUM_K,
-                                              freeze_bn=not training)
-                    sd = _tiny_weights(5, make_module())
-                    rng = np.random.RandomState(0)
-                    nb = _tiny_batch(algo, n, h, w, rng)
-                    draws = [_tiny_draws(algo, n, h, w, rng) for _ in range(steps)]
-                    masks.k = 0
-                    runs = {d: _run_tiny(d, sd, make_module, cfg, make_step, nb, draws, masks)
-                            for d in ("cpu", "cuda")}
-                    name = f"{algo} K={ACCUM_K} {mode}"
-                    _check_small_run(name, runs, n * h * w, steps, lr)
-                    moved = [k for k, v in runs["cuda"][1][-1].items()
-                             if k.startswith("student.") and "running" in k
-                             and not torch.equal(v, sd[k[len("student."):]])]
-                    if training and (not moved or masks.k == 0):
-                        raise RuntimeError(f"{name}: {len(moved)} running statistics moved, "
-                                           f"{masks.k} dropout masks drawn")
-                    if training:
-                        note(f"[small] {name}: {len(moved)} running statistics of the student "
-                             f"moved; {masks.k} dropout masks per step")
-    finally:
-        Dropout.draw_keep = draw_keep
-
-
-# phase 4b: the Pascal recipe's lines of the other algorithms
-# (run_pascal_aug_experiments.sh:22-24)
-FULL_ALGOS = ("ict", "vat_mt", "aug_mt")
-
-
-def make_full_step(algorithm: str = "mask_mt"):
-    """The bench.py recipe on the port for ``algorithm`` (mask_mt: CutMix;
-    ict, vat_mt, aug_mt: the recipe's lines): (state, step, batch) on the
-    card. The unsupervised images are 10 + 10 for mask_mt and ICT, 10 for
-    VAT and aug_mt (one crop pair per image)."""
-    torch.backends.cudnn.benchmark = True
-    model = resnet101_deeplab_imagenet(NUM_CLASSES, dtype=torch.bfloat16, pretrained=False)
-    state, opt = create_train_state(
-        model, OptimizerConfig(opt_type="adam", learning_rate=3e-5), 0, pretrained=False)
-    common_kw = dict(cons_weight=1.0, conf_thresh=0.97, conf_per_pixel=False,
-                     freeze_bn=True, mean_teacher=True, teacher_alpha=0.99)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    shape = (BATCH, CROP, CROP, 3)
-    ones = torch.ones(shape[:3] + (1,), device="cuda")
-    batch = {"sup_x": torch.randn(shape, generator=gen, device="cuda"),
-             "sup_y": torch.randint(0, NUM_CLASSES, shape[:3], generator=gen, device="cuda")}
-    if algorithm in ("mask_mt", "ict"):
-        for k in ("ux0", "ux1"):
-            batch[f"{k}_tea"] = batch[f"{k}_stu"] = torch.randn(shape, generator=gen,
-                                                                device="cuda")
-        batch["um0"], batch["um1"] = ones, ones
-    if algorithm == "mask_mt":
-        step = make_mask_mt_step(model, opt, MaskConsistencyConfig(
-            mask_mode="mix", box=BoxMaskConfig((0.5, 0.5)), remat_loss_chain=True,
-            loss_softmax_dtype="bfloat16", **common_kw))
-    elif algorithm == "ict":
-        step = make_ict_step(model, opt, ICTConfig(ict_alpha=0.1, **common_kw))
-    elif algorithm == "vat_mt":
-        batch["ux_tea"] = batch["ux_stu"] = torch.randn(shape, generator=gen, device="cuda")
-        batch["um"] = ones
-        step = make_vat_step(model, opt, VATConfig(
-            vat_radius=1.0, adaptive_vat_radius=True, **dict(common_kw, cons_weight=0.1)))
-    elif algorithm == "aug_mt":
-        batch["ux0"] = torch.randn(shape, generator=gen, device="cuda")
-        batch["ux1"] = torch.randn(shape, generator=gen, device="cuda")
-        batch["um0"], batch["um1"] = ones, ones
-        # crop 1 is crop 0 shifted by up to 16 px (the --aug_offset_range
-        # default) in grid units
-        xf = torch.eye(2, 3, device="cuda").repeat(BATCH, 1, 1)
-        xf[:, :, 2] = (torch.rand((BATCH, 2), generator=gen, device="cuda") * 2 - 1) \
-            * (16.0 * 2 / (CROP - 1))
-        batch["xf0_to_1"] = xf
-        step = make_aug_cons_step(model, opt, AugConsConfig(**common_kw))
-    else:
-        raise ValueError(f"unknown algorithm {algorithm!r}")
-    return state, step, batch
-
-
-def phase_full_step(algorithm: str = "mask_mt") -> dict:
+def phase_full_step(algorithm: str) -> dict:
+    """4b: ``algorithm``'s step of the bench.py recipe, WARMUP warm-up and
+    ITERS timed (its checks: tests/test_torch_card_steps.py)."""
     state, step, batch = make_full_step(algorithm)
     n_params = sum(p.numel() for p in state.student.parameters())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    w0 = state.student.layer5.conv2d_list[0].weight.detach().clone()
-
-    build.launch_counts.clear()
-    t0 = time.perf_counter()
-    for _ in range(WARMUP):
-        state, m = step(state, dict(batch), 1.0)  # a graphed step consumes its batch
-        if not all(math.isfinite(v.item()) for v in m.values()):
-            raise RuntimeError(f"{algorithm}: non-finite warm-up metrics {m}")
-    warm_s = time.perf_counter() - t0
-    timed = []
-    t0 = time.perf_counter()
-    for _ in range(ITERS):
-        state, m = step(state, dict(batch), 1.0)  # a graphed step consumes its batch
-        timed.append(m)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = dict(build.launch_counts)
-
-    for m in timed:
-        if sorted(m) != ["conf_rate", "cons_loss", "sup_loss"] or not all(
-                math.isfinite(v.item()) for v in m.values()):
-            raise RuntimeError(f"{algorithm}: non-finite or missing metrics {m}")
-    # CutMix mask_mt blends with the kernel once per step; the other
-    # algorithms never call it
-    want = WARMUP + ITERS if algorithm == "mask_mt" else 0
-    if launches.get(KERNEL, 0) != want:
-        raise RuntimeError(f"{algorithm}: expected {want} {KERNEL} launches, got {launches}")
-    if state.step != WARMUP + ITERS or torch.equal(
-            w0, state.student.layer5.conv2d_list[0].weight):
-        raise RuntimeError(f"{algorithm}: the student did not update")
-    with torch.no_grad():
-        logits = state.teacher(batch["sup_x"][:2])
-    if logits.shape != (2, CROP, CROP, NUM_CLASSES) or not bool(torch.isfinite(logits).all()):
-        raise RuntimeError(f"teacher logits {tuple(logits.shape)} not finite/expected")
-    ms = dt / ITERS * 1e3
-    result = {"ms_per_step": ms, "img_per_s": BATCH * ITERS / dt,
+    state, metrics, launches, warm_s, dt = run_steps(state, step, batch)
+    result = {"ms_per_step": dt / ITERS * 1e3, "img_per_s": BATCH * ITERS / dt,
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-              "warmup_s": warm_s, "launches": launches, "params": n_params,
-              "last": {k: v.item() for k, v in timed[-1].items()}}
-    unsup = 2 * BATCH if algorithm in ("mask_mt", "ict") else BATCH
-    tag = "full" if algorithm == "mask_mt" else f"full {algorithm}"
-    note(f"[{tag}] R101 bf16 bs {BATCH}+{unsup} {CROP}^2 ({n_params} params): "
-         f"{ms:.2f} ms/step, {result['img_per_s']:.2f} img/s, peak "
-         f"{result['peak_mem_gib']:.2f} GiB, warm-up {warm_s:.1f} s, launches {launches}, "
+              "warmup_s": warm_s, "launches": dict(launches), "params": n_params,
+              "last": {k: v.item() for k, v in metrics[-1].items()}}
+    unsup = 2 * BATCH if algorithm == "ict" else BATCH
+    note(f"[full {algorithm}] R101 bf16 bs {BATCH}+{unsup} {CROP}^2 ({n_params} params): "
+         f"{result['ms_per_step']:.2f} ms/step, {result['img_per_s']:.2f} img/s, peak "
+         f"{result['peak_mem_gib']:.2f} GiB, warm-up {warm_s:.1f} s, launches {dict(launches)}, "
          f"last metrics {result['last']}")
     if algorithm == "vat_mt":
         result["eps_probe"] = _vat_eps_probe(state, batch)
@@ -1251,134 +611,6 @@ def _vat_eps_probe(state, batch) -> dict:
     return out
 
 
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
-
-
-def _host_batch(source, mode: str, with_labels: bool, seed: int):
-    """One host batch of BATCH images from the port's loader: (geom, batch)."""
-    rotate = mode == "crop_rotate_scale"
-    geom = GeomConfig.from_cli((CROP, CROP), mode == "crop_scale_hung", 1.5 if rotate else 1.0,
-                               20.0 if rotate else 0.0, False, True, False, False)
-    if geom.mode != mode:
-        raise RuntimeError(f"flags gave geometry {geom.mode}, not {mode}")
-    stream = train_stream(HostBatchBuilder(source, geom, with_labels=with_labels, n_threads=4),
-                          source.train_ndx, BATCH, seed=seed)
-    try:
-        return geom, next(stream)
-    finally:
-        stream.close()
-
-
-def _augment(geom, batch, params, with_labels, mean, std):
-    return augment_batch(batch["canvas"], batch.get("labels"), batch["m"], batch["sizes"],
-                         batch["interp"], mean, std, params, (CROP, CROP), with_labels,
-                         border=border_for_mode(geom.mode),
-                         separable=common.separable_for_geom(geom))
-
-
-def phase_augment_eval(voc_root: str, dev: str = "cuda") -> dict:
-    """The port's augmentation and confusion matrix on ``dev`` against the
-    CPU. TF32 is switched on for matrix products meanwhile: the separable
-    warp must not take it."""
-    source = PascalVOCDataSource(-1, np.random.RandomState(0), None, root=voc_root)
-    mean, std = IMAGENET_MEAN, IMAGENET_STD
-    colour = ColourJitterConfig()
-    worst = {"image": 0.0, "mask": 0.0}
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("high")
-    try:
-        for seed, (mode, with_labels) in enumerate(
-                [(m, lab) for m in ("crop_rotate_scale", "crop_scale_hung") for lab in (True, False)]):
-            geom, host = _host_batch(source, mode, with_labels, seed)
-            params = None
-            if not with_labels:
-                params = sample_colour_params(torch.Generator().manual_seed(seed), BATCH, colour)
-            outs = {}
-            for d in ("cpu", dev):
-                b = common.to_device(host, torch.device(d))
-                p = None if params is None else ColourParams(
-                    **{f.name: getattr(params, f.name).to(d) for f in dataclasses.fields(params)})
-                outs[d] = {k: v.cpu() for k, v in _augment(geom, b, p, with_labels,
-                                                           mean, std).items()}
-            ref, got = outs["cpu"], outs[dev]
-            if sorted(ref) != sorted(got):
-                raise RuntimeError(f"augment_batch keys differ: {sorted(ref)} {sorted(got)}")
-            errs = {k: (got[k].double() - ref[k].double()).abs().max().item()
-                    for k in ref if k != "labels"}
-            labels_equal = with_labels and torch.equal(got["labels"], ref["labels"])
-            note(f"[aug] {mode} {'labels' if with_labels else 'colour'} interp "
-                 f"{sorted(set(host['interp'].tolist()))} {tuple(got['image'].shape)} from "
-                 f"{tuple(host['canvas'].shape[1:3])} canvases, {dev} vs cpu: max_abs_err "
-                 f"{errs}" + (f", labels bit-equal={labels_equal}" if with_labels else ""))
-            if with_labels and not labels_equal:
-                raise RuntimeError(f"{mode}: warped labels differ between {dev} and cpu")
-            for k, e in errs.items():
-                kind = "mask" if k == "mask" else "image"
-                worst[kind] = max(worst[kind], e)
-                if not e <= (AUG_MASK_ATOL if kind == "mask" else AUG_NORM_ATOL):
-                    raise RuntimeError(f"{mode} {k}: {dev} and cpu differ by {e}")
-    finally:
-        torch.set_float32_matmul_precision(prev)
-
-    # the Pascal recipe's per-iteration work on the card: the copy of one
-    # labelled and two unlabelled host batches, then their augmentation
-    geom, sup = _host_batch(source, "crop_scale_hung", True, 10)
-    _, unsup = _host_batch(source, "crop_scale_hung", False, 11)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    d = torch.device(dev)
-    h2d, aug = [], []
-    for _ in range(6):
-        _sync(d)
-        t0 = time.perf_counter()
-        bs = [common.to_device(b, d) for b in (sup, unsup, unsup)]
-        _sync(d)
-        t1 = time.perf_counter()
-        _augment(geom, bs[0], None, True, mean, std)
-        for b in bs[1:]:
-            _augment(geom, b, sample_colour_params(gen, BATCH, colour), False, mean, std)
-        _sync(d)
-        h2d.append(t1 - t0)
-        aug.append(time.perf_counter() - t1)
-    nbytes = sum(v.nbytes for b in (sup, unsup, unsup) for v in b.values())
-    h2d_ms, aug_ms = float(np.median(h2d[1:])) * 1e3, float(np.median(aug[1:])) * 1e3
-    note(f"[aug] Pascal recipe per iteration on {dev}: copy of 3 host batches "
-         f"({nbytes / 1e6:.2f} MB) {h2d_ms:.2f} ms, augmentation (sup + 2 unsup with "
-         f"colour) {aug_ms:.2f} ms (median of 5)")
-
-    rng = np.random.RandomState(5)
-    truth = rng.randint(0, NUM_CLASSES, size=(BATCH, 512, 512))
-    truth[rng.rand(*truth.shape) < 0.2] = 255
-    pred = rng.randint(0, NUM_CLASSES, size=truth.shape)
-    cm_ref = confusion_matrix(torch.from_numpy(pred), torch.from_numpy(truth), NUM_CLASSES)
-    pred_d, truth_d = torch.from_numpy(pred).to(d), torch.from_numpy(truth).to(d)
-    cm = confusion_matrix(pred_d, truth_d, NUM_CLASSES)
-    equal = torch.equal(cm.cpu(), cm_ref) and int(cm_ref.sum()) == int((truth != 255).sum())
-    _sync(d)
-    t0 = time.perf_counter()
-    for _ in range(10):
-        confusion_matrix(pred_d, truth_d, NUM_CLASSES)
-    _sync(d)
-    cm_ms = (time.perf_counter() - t0) / 10 * 1e3
-    note(f"[eval] confusion_matrix {truth.shape} ({truth.size} px) on {dev}: bit-equal to "
-         f"cpu={equal}, {cm_ms:.3f} ms")
-    if not equal:
-        raise RuntimeError(f"confusion_matrix differs between {dev} and cpu")
-    return {"aug_max_abs_err": worst, "h2d_ms": h2d_ms, "aug_ms": aug_ms, "cm_ms": cm_ms}
-
-
-# the Pascal recipe (run_pascal_aug_experiments.sh: PARAMS_PASCALAUG_DEEPLAB2I
-# and AUG_PASCAL, at this tree's size) on the synthetic VOC tree
-RECIPE_COMMON = [
-    "--dataset=pascal", "--arch=resnet101_deeplab_imagenet", "--freeze_bn",
-    "--batch_size=10", "--learning_rate=3e-5", "--crop_size=321,321", "--aug_hflip",
-    "--aug_scale_hung", "--aug_strong_colour", "--n_sup=20", "--no_pretrained",
-    f"--iters_per_epoch={TRAIN_ITERS}",
-]
-# phase 6: the CutMix line (REG_MASK_CUTMIX)
-RECIPE_FLAGS = RECIPE_COMMON + ["--cons_weight=1.0", "--mask_mode=mix",
-                                "--mask_prop_range=0.5", "--conf_thresh=0.97", "--save_model"]
 # phase 6b: the ICT, VAT and aug_mt lines (REG_ICT01, REG_VAT_ADARAD1_CW01,
 # REG_AUG_SEMISUP; run_pascal_aug_experiments.sh:22-24)
 RECIPE_ALGOS = {
@@ -1393,10 +625,7 @@ RECIPE_ALGOS = {
 
 
 def _parse_flags(flags, algorithm: str = "mask_mt") -> dict:
-    cmd = experiment if algorithm == "mask_mt" else RECIPE_ALGOS[algorithm][0]
-    params = dict(cmd.make_context("experiment", list(flags)).params)
-    del params["job_desc"]
-    return params
+    return parse_flags(flags, experiment if algorithm == "mask_mt" else RECIPE_ALGOS[algorithm][0])
 
 
 def _run_trainer(results: str, flags, device, algorithm: str = "mask_mt",
@@ -1446,7 +675,7 @@ def _states_equal(a: dict, b: dict) -> bool:
     return eq(a, b)
 
 
-def phase_trainer(voc_root: str, step_ms: float, device=None) -> dict:
+def phase_trainer(voc_root: str, device=None) -> dict:
     """The trainer at full width on the card: 2 epochs, then --resume to 3."""
     tmp = os.path.dirname(voc_root)
     os.environ["CUTMIX_SEG_CONFIG"] = write_config(os.path.join(tmp, "seg.cfg"), voc_root)
@@ -1483,14 +712,11 @@ def phase_trainer(voc_root: str, step_ms: float, device=None) -> dict:
 
     with open(os.path.join(run_dir, "metrics_run.jsonl")) as f:
         records = [json.loads(ln) for ln in f]
-    ep2 = records[1]
     n_eval_batches = -(-VOC_VAL // BATCH)
-    ms_iter = ep2["train_time"] / TRAIN_ITERS * 1e3
     result = {
-        "ms_per_iter": ms_iter, "img_per_s": TRAIN_ITERS * BATCH / ep2["train_time"],
-        "eval_ms_per_batch": ep2["eval_time"] / n_eval_batches * 1e3,
-        "epoch_s": [r["epoch_time"] for r in records], "ckpt_host_copy_s": t1 - t0,
-        "ckpt_save_s": t2 - t1, "launches": launches1, "losses": first, "run_dir": run_dir,
+        "eval_ms_per_batch": records[1]["eval_time"] / n_eval_batches * 1e3,
+        "ckpt_host_copy_s": t1 - t0, "ckpt_save_s": t2 - t1, "launches": launches1,
+        "losses": first, "run_dir": run_dir,
     }
     note(f"[trainer] Pascal recipe, {engine.p['arch']} {engine.p['compute_dtype']}, bs {BATCH}, "
          f"{CROP}^2 crops from {engine.ds.canvas_hw} canvases, "
@@ -1498,11 +724,10 @@ def phase_trainer(voc_root: str, step_ms: float, device=None) -> dict:
          f"{launches1} {KERNEL} launches in {2 * TRAIN_ITERS} iterations "
          f"(step graph {engine.step_counters()}); "
          f"checkpoints {ckpts} + model.pt; restored state bit-equal to the saved one")
-    note(f"[trainer] epoch 2: {ms_iter:.2f} ms/iteration, {result['img_per_s']:.2f} img/s "
-         f"(host loader + copy + augmentation + step) beside phase 4's bare step "
-         f"{step_ms:.2f} ms/step; eval {result['eval_ms_per_batch']:.1f} ms per val batch of "
-         f"{BATCH} ({engine.ds.canvas_hw}); epochs {[round(s, 2) for s in result['epoch_s']]} s; "
-         f"checkpoint ({ckpt_mb:.0f} MB: student, teacher, Adam moments): host copy "
+    # the line's rate is the pascal-cutmix cell's (benchmark/run.py)
+    note(f"[trainer] epoch 2: eval {result['eval_ms_per_batch']:.1f} ms per val batch of "
+         f"{BATCH} ({engine.ds.canvas_hw}); checkpoint ({ckpt_mb:.0f} MB: student, teacher, "
+         f"Adam moments): host copy "
          f"{t1 - t0:.2f} s, synchronous save {t2 - t1:.2f} s")
 
     engine3, launches3, log = _run_trainer(
@@ -1555,168 +780,54 @@ def phase_trainers_algos(voc_root: str, step_ms: dict, device=None) -> dict:
     return out
 
 
-# the ISIC-2017 recipe (run_isic2017_experiments.sh): DenseUNet-161, training
-# BN and dropout, SGD 0.1 poly with weight decay 5e-4, 224^2 crops, fill-holes
-# eval; its seven lines: name -> (algorithm, the line's flags)
-ISIC_COMMON = [
-    "--dataset=isic2017", "--arch=densenet161unet_imagenet", "--batch_size=10",
-    "--iters_per_epoch=400", "--num_epochs=100", "--opt_type=sgd", "--learning_rate=0.1",
-    "--sgd_weight_decay=5e-4", "--lr_sched=poly", "--bin_fill_holes", "--crop_size=224,224",
-    "--aug_hflip", "--aug_vflip", "--aug_hvflip", "--aug_max_scale=1.1", "--aug_rot_mag=45.0",
-    "--aug_strong_colour",
-]
-ISIC_LINES = {
-    "sup_50": ("aug_mt", ["--n_sup=50", "--cons_weight=0.0"]),
-    "sup_all": ("aug_mt", ["--n_sup=-1", "--cons_weight=0.0"]),
-    "cutmix": ("mask_mt", ["--n_sup=50", "--cons_weight=1.0", "--mask_mode=mix",
-                           "--mask_prop_range=0.5", "--conf_thresh=0.97"]),
-    "cutout": ("mask_mt", ["--n_sup=50", "--cons_weight=1.0", "--mask_mode=zero",
-                           "--mask_prop_range=0.0:1.0", "--conf_thresh=0.97"]),
-    "aug": ("aug_mt", ["--n_sup=50", "--cons_weight=0.1", "--conf_thresh=0.97"]),
-    "ict": ("ict", ["--n_sup=50", "--cons_weight=0.0003", "--ict_alpha=0.1",
-                    "--conf_thresh=0.97"]),
-    "vat": ("vat_mt", ["--n_sup=50", "--adaptive_vat_radius", "--vat_radius=1.0",
-                       "--cons_weight=0.001", "--conf_thresh=0.97"]),
-}
-# the Pascal DeepLab v3+ recipe's CutMix line
-# (run_pascal_aug_deeplab3plus_experiments.sh), but for --dataset=pascal_aug
-# and its --split_path: the synthetic tree is a plain VOC tree
-V3PLUS_CUTMIX = [
-    "--dataset=pascal", "--arch=resnet101_deeplabv3plus_imagenet", "--freeze_bn",
-    "--batch_size=10", "--learning_rate=1e-5", "--iters_per_epoch=1000", "--num_epochs=40",
-    "--crop_size=321,321", "--aug_hflip", "--aug_scale_hung", "--aug_strong_colour",
-    "--n_sup=100", "--cons_weight=1.0", "--mask_mode=mix", "--mask_prop_range=0.5",
-    "--conf_thresh=0.97",
-]
-# phase 4c: name -> (flags, classes)
-RECIPE_STEPS = {
-    "densenet161unet ISIC": (ISIC_COMMON + ISIC_LINES["cutmix"][1], 2),
-    "deeplabv3plus Pascal": (V3PLUS_CUTMIX, NUM_CLASSES),
-}
-# phase 4d: the steps run at grad_accum 1 and 2 (name -> (flags, classes));
-# the DenseUNet's grad_accum 1 is phase 4c's, in the same call
-ACCUM_STEPS = {
-    "deeplab2 Pascal": (RECIPE_FLAGS, NUM_CLASSES),  # the phase-6 CutMix line
-    "densenet161unet ISIC": RECIPE_STEPS["densenet161unet ISIC"],
-}
-# phase 4d: the DenseUNet step's warm-up and timed steps (each ~0.6 s)
+# 4d: the DenseUNet step's warm-up and timed steps (each ~0.6 s)
 DENSE_WARMUP, DENSE_ITERS = 2, 5
+
+
+def phase_accum_step(name: str, accum_k: int, warmup: int, iters: int) -> dict:
+    """4d: ``make_recipe_step(name)`` at grad_accum ``accum_k``, ``warmup``
+    warm-up and ``iters`` timed steps (its checks:
+    tests/test_torch_card_steps.py)."""
+    state, step, batch, p, cfg = make_recipe_step(name, [f"--grad_accum={accum_k}"])
+    crop = tuple(batch["sup_x"].shape[1:3])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics, launches, warm_s, dt = run_steps(state, step, batch, warmup, iters)
+    result = {"ms_per_step": dt / iters * 1e3, "img_per_s": BATCH * iters / dt,
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "warmup_s": warm_s,
+              "launches": launches[KERNEL],
+              "bn_launches": sum(launches[k] for k in batchnorm.KERNELS),
+              "grad_accum": cfg.grad_accum, "last": {k: v.item() for k, v in metrics[-1].items()}}
+    note(f"[accum step] {name}: {p['arch']} {p['compute_dtype']} bs {BATCH}+{BATCH}+{BATCH} "
+         f"{crop[0]}x{crop[1]}, grad_accum {cfg.grad_accum}, freeze_bn={cfg.freeze_bn}, "
+         f"{p['opt_type']} {p['learning_rate']} {p['lr_sched']}: {warmup} warm-up + {iters} "
+         f"timed: {result['ms_per_step']:.2f} ms/step, {result['img_per_s']:.2f} img/s, peak "
+         f"{result['peak_mem_gib']:.2f} GiB, warm-up {warm_s:.1f} s, {result['launches']} "
+         f"{KERNEL} launches, {result['bn_launches']} BN kernel launches, last metrics "
+         f"{result['last']}")
+    return result
+
+
 # phase 6c: the synthetic ISIC zip (248^2, the converter's size) and the runs
 ISIC_TRAIN, ISIC_VAL, ISIC_ITERS, V3PLUS_ITERS = 60, 10, 4, 5
 
 
-def _running_stats(net: torch.nn.Module) -> dict:
-    return {k: v.detach().clone() for k, v in net.named_buffers() if "running" in k}
-
-
-def make_recipe_step(name: str, extra=()):
-    """A recipe's CutMix line (``RECIPE_STEPS``, ``ACCUM_STEPS``) and
-    ``extra`` flags as a bare step at full width, built as the trainer
-    builds it (its flags, ``build_spec``, ``build_model``, the optimiser of
-    its schedule), on random batches made on the card: (state, step, batch,
-    parsed flags, step config)."""
-    flags, classes = {**RECIPE_STEPS, **ACCUM_STEPS}[name]
-    p = _parse_flags(list(flags) + list(extra))
-    spec, cfg = build_spec(p)
-    model = common.build_model(p["arch"], classes, p["compute_dtype"])
-    total = p["iters_per_epoch"] * p["num_epochs"]
-    opt_cfg = common.build_optimizer_config(
-        p["opt_type"], p["learning_rate"], p["lr_sched"], p["lr_step_epochs"],
-        p["lr_step_gamma"], p["lr_poly_power"], total, p["iters_per_epoch"],
-        p["sgd_momentum"], p["sgd_nesterov"], p["sgd_weight_decay"])
-    torch.backends.cudnn.benchmark = True
-    state, opt = create_train_state(model, opt_cfg, 0, mean_teacher=cfg.mean_teacher,
-                                    pretrained=False)
-    step = spec.make_step(model, opt)
-    crop = common.parse_crop_size(p["crop_size"])
-    shape = (BATCH, *crop, 3)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    ones = torch.ones(shape[:3] + (1,), device="cuda")
-    batch = {"sup_x": torch.randn(shape, generator=gen, device="cuda"),
-             "sup_y": torch.randint(0, classes, shape[:3], generator=gen, device="cuda"),
-             "um0": ones, "um1": ones}
-    for k in ("ux0", "ux1"):
-        batch[f"{k}_tea"] = batch[f"{k}_stu"] = torch.randn(shape, generator=gen, device="cuda")
-    return state, step, batch, p, cfg
-
-
-def phase_recipe_step(name: str, extra=(), warmup: int = WARMUP, iters: int = ITERS,
-                      tag: str = "recipe step") -> dict:
-    """``make_recipe_step(name, extra)``: ``warmup`` warm-up and ``iters``
-    timed steps."""
-    state, step, batch, p, cfg = make_recipe_step(name, extra)
-    classes = {**RECIPE_STEPS, **ACCUM_STEPS}[name][1]
-    crop = tuple(batch["sup_x"].shape[1:3])
-    n_params = sum(t.numel() for t in state.student.parameters())
-    stats0 = _running_stats(state.student)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-
-    build.launch_counts.clear()
-    plain0 = batchnorm.counters()["bn_plain_cuda_calls"]
-    t0 = time.perf_counter()
-    for _ in range(warmup):
-        state, m = step(state, dict(batch), 1.0)  # a graphed step consumes its batch
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    timed = []
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        state, m = step(state, dict(batch), 1.0)  # a graphed step consumes its batch
-        timed.append(m)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = dict(build.launch_counts)
-
-    for m in timed:
-        if sorted(m) != ["conf_rate", "cons_loss", "sup_loss"] or not all(
-                math.isfinite(v.item()) for v in m.values()):
-            raise RuntimeError(f"{name}: non-finite or missing metrics {m}")
-    # one launch per step, over the whole batch, whatever grad_accum is
-    if launches.get(KERNEL, 0) != warmup + iters:
-        raise RuntimeError(f"{name}: expected {warmup + iters} {KERNEL} launches, got {launches}")
-    stats = _running_stats(state.student)
-    moved = sum(not torch.equal(v, stats0[k]) for k, v in stats.items())
-    finite = all(bool(torch.isfinite(v).all()) for v in stats.values())
-    if not finite or moved != (0 if cfg.freeze_bn else len(stats)):
-        raise RuntimeError(f"{name}: {moved} of {len(stats)} running statistics moved "
-                           f"(finite: {finite}) with freeze_bn={cfg.freeze_bn}")
-    with torch.no_grad(), eval_mode(state.teacher):
-        logits = state.teacher(batch["sup_x"][:2])
-    if logits.shape != (2, *crop, classes) or not bool(torch.isfinite(logits).all()):
-        raise RuntimeError(f"{name}: teacher logits {tuple(logits.shape)} not finite/expected")
-    result = {"ms_per_step": dt / iters * 1e3, "img_per_s": BATCH * iters / dt,
-              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "warmup_s": warm_s,
-              "launches": launches.get(KERNEL, 0), "params": n_params,
-              "bn_launches": sum(launches.get(k, 0) for k in batchnorm.KERNELS),
-              "bn_plain_cuda_calls": batchnorm.counters()["bn_plain_cuda_calls"] - plain0,
-              "stats_moved": moved, "stats": len(stats), "grad_accum": cfg.grad_accum,
-              "last": {k: v.item() for k, v in timed[-1].items()}}
-    # training BN goes through the kernels on every call, frozen BN never
-    if result["bn_plain_cuda_calls"] or cfg.freeze_bn != (result["bn_launches"] == 0):
-        raise RuntimeError(f"{name}: {result['bn_launches']} BN kernel launches and "
-                           f"{result['bn_plain_cuda_calls']} plain BN calls with "
-                           f"freeze_bn={cfg.freeze_bn}")
-    note(f"[{tag}] {name}: {p['arch']} {p['compute_dtype']} bs {BATCH}+{BATCH}+{BATCH} "
-         f"{crop[0]}x{crop[1]}, grad_accum {cfg.grad_accum}, freeze_bn={cfg.freeze_bn}, "
-         f"{p['opt_type']} {p['learning_rate']} {p['lr_sched']} ({n_params} params): "
-         f"{warmup} warm-up + {iters} timed: {result['ms_per_step']:.2f} ms/step, "
-         f"{result['img_per_s']:.2f} img/s, peak {result['peak_mem_gib']:.2f} GiB, warm-up "
-         f"{warm_s:.1f} s, {result['launches']} {KERNEL} launches, {result['bn_launches']} BN "
-         f"kernel launches ({result['bn_plain_cuda_calls']} plain BN calls on the card), "
-         f"running statistics moved "
-         f"{moved}/{len(stats)} and finite, last metrics {result['last']}")
-    return result
-
-
-def _trainer_record(engine, iters: int) -> dict:
-    """The timing and VAL mIoU of a run's last epoch (its JSONL record)."""
+def _trainer_record(engine, iters: int, timed: bool = True) -> dict:
+    """The VAL mIoU and training-BN kernel launches of a run's last epoch
+    (its JSONL record) and, where
+    ``timed``, its timing: a line that a benchmark cell runs is timed there
+    (benchmark/run.py), not here."""
     with open(engine.ctx.metrics_path) as f:
         rec = json.loads(f.readlines()[-1])
-    return {"ms_per_iter": rec["train_time"] / iters * 1e3,
-            "img_per_s": iters * BATCH / rec["train_time"], "val_miou": rec["val_miou"],
-            "epoch_s": rec["epoch_time"], "eval_s": rec["eval_time"]}
+    out = {"val_miou": rec["val_miou"], "bn_launches": rec["bn_launches"]}
+    if not timed:
+        return out
+    return dict(out, ms_per_iter=rec["train_time"] / iters * 1e3,
+                img_per_s=iters * BATCH / rec["train_time"], epoch_s=rec["epoch_time"],
+                eval_s=rec["eval_time"])
+
+
 
 
 def phase_isic_trainers(tmp: str, voc_root: str, zip_path: str) -> dict:
@@ -1745,17 +856,24 @@ def phase_isic_trainers(tmp: str, voc_root: str, zip_path: str) -> dict:
         if engine.resident is None or "Data on device:" not in log:
             raise RuntimeError(f"ISIC {name}: --data_on_device auto did not stage the store")
         for part, net in (("student", engine.state.student), ("teacher", engine.state.teacher)):
-            var = [v for k, v in _running_stats(net).items() if k.endswith("running_var")]
+            var = [v for k, v in running_stats(net).items() if k.endswith("running_var")]
             if not all(bool(torch.isfinite(v).all()) and not bool((v == 1).all()) for v in var):
                 raise RuntimeError(f"ISIC {name}: a {part} BN's running variance did not move "
                                    "or is not finite")
-        out[name] = dict(_trainer_record(engine, ISIC_ITERS), launches=launches, losses=losses)
+        # the CutMix line is the isic-cutmix cell's
+        rec = _trainer_record(engine, ISIC_ITERS, timed=name != "cutmix")
+        if name == "cutmix" and rec["bn_launches"] != DENSENET_BN_LAUNCHES * ISIC_ITERS:
+            raise RuntimeError(f"ISIC cutmix: {rec['bn_launches']} training-BN kernel launches, "
+                               f"expected {DENSENET_BN_LAUNCHES} an iteration")
+        out[name] = dict(rec, launches=launches, losses=losses)
+        timing = "" if name == "cutmix" else (
+            f"; {rec['ms_per_iter']:.2f} ms/iteration ({rec['img_per_s']:.2f} img/s, the "
+            f"epoch's first iteration included), epoch {rec['epoch_s']:.2f} s of which eval "
+            f"{rec['eval_s']:.2f} s")
         note(f"[trainer isic] {name} ({algo}: {' '.join(line)}): epoch 1 {losses}, VAL mIoU "
-             f"{out[name]['val_miou']:.4f} (fill-holes eval); {out[name]['ms_per_iter']:.2f} "
-             f"ms/iteration ({out[name]['img_per_s']:.2f} img/s, the epoch's first iteration "
-             f"included), epoch {out[name]['epoch_s']:.2f} s of which eval "
-             f"{out[name]['eval_s']:.2f} s; {launches} {KERNEL} launches; the running "
-             "statistics of student and teacher moved")
+             f"{rec['val_miou']:.4f} (fill-holes eval){timing}; {launches} {KERNEL} launches, "
+             f"{rec['bn_launches']} training-BN kernel launches; the running statistics of "
+             "student and teacher moved")
         if name == "cutmix":
             saved = checkpoint.state_to_host(engine.state)
             model2 = common.build_model(engine.p["arch"], engine.n_classes,
@@ -1774,7 +892,9 @@ def phase_isic_trainers(tmp: str, voc_root: str, zip_path: str) -> dict:
                 raise RuntimeError(f"ISIC cutmix --resume: started at epoch "
                                    f"{engine2.start_epoch + 1}, ended at step "
                                    f"{engine2.state.step}, {launches2} launches")
-            out["cutmix_resume"] = {"launches": launches2, "losses": _epoch_line(log2, 2)}
+            out["cutmix_resume"] = {"launches": launches2, "losses": _epoch_line(log2, 2),
+                                    "bn_launches": _trainer_record(engine2, ISIC_ITERS,
+                                                                   False)["bn_launches"]}
             note(f"[trainer isic] cutmix: the checkpoint restores the saved state bit for bit "
                  f"(BN running statistics and generator included); --resume started at epoch "
                  f"2, epoch line {out['cutmix_resume']['losses']}, {launches2} {KERNEL} launches "
@@ -1789,11 +909,11 @@ def phase_isic_trainers(tmp: str, voc_root: str, zip_path: str) -> dict:
     losses = _epoch_line(log, 1)
     if launches != V3PLUS_ITERS:
         raise RuntimeError(f"v3+ cutmix: expected {V3PLUS_ITERS} {KERNEL} launches, got {launches}")
-    out["v3plus_cutmix"] = dict(_trainer_record(engine, V3PLUS_ITERS), launches=launches,
-                                losses=losses)
+    # the line is the pascal-deeplab3plus-cutmix cell's
+    out["v3plus_cutmix"] = dict(_trainer_record(engine, V3PLUS_ITERS, timed=False),
+                                launches=launches, losses=losses)
     note(f"[trainer v3+] Pascal v3+ CutMix line on the synthetic VOC tree: epoch 1 {losses}, "
-         f"VAL mIoU {out['v3plus_cutmix']['val_miou']:.4f}; "
-         f"{out['v3plus_cutmix']['ms_per_iter']:.2f} ms/iteration; {launches} {KERNEL} launches")
+         f"VAL mIoU {out['v3plus_cutmix']['val_miou']:.4f}; {launches} {KERNEL} launches")
     del engine
     torch.cuda.empty_cache()
     return out
@@ -1824,17 +944,18 @@ CITYSCAPES_CUTMIX = [
 STORE_ITERS = 5
 
 
-def _checked_run(results: str, flags, desc: str, iters: int, classes: int, epochs: int = 1):
+def _checked_run(results: str, flags, desc: str, iters: int, classes: int, epochs: int = 1,
+                 timed: bool = True):
     """A CutMix line through the trainer: ``epochs`` epochs of ``iters``
     iterations with eval, one kernel launch per iteration; the last epoch's
-    record, the run's engine and its log."""
+    record (``_trainer_record``), the run's engine and its log."""
     engine, launches, log = _run_trainer(results, flags, None, desc=desc)
     losses = _epoch_line(log, epochs)
     n = epochs * iters
     if launches != n or engine.state.step != n or engine.n_classes != classes:
         raise RuntimeError(f"{desc}: {launches} {KERNEL} launches, step {engine.state.step}, "
                            f"{engine.n_classes} classes (expected {n}, {n}, {classes})")
-    out = dict(_trainer_record(engine, iters), launches=launches, losses=losses,
+    out = dict(_trainer_record(engine, iters, timed), launches=launches, losses=losses,
                resident="Data on device:" in log)
     return out, engine, log
 
@@ -1873,7 +994,7 @@ def _store_batches(flags, mode: str, run_dir: str) -> dict:
             "augment_ms": float(np.median(aug_s[1:])) * 1e3}
 
 
-def phase_recipe_datasets(tmp: str, voc_root: str, isic_zip: str, isic_cutmix: dict) -> dict:
+def phase_recipe_datasets(tmp: str, voc_root: str, isic_zip: str) -> dict:
     """Phase 6d: the CutMix trainer on the recipes' own datasets, and the
     device-resident store against streaming."""
     out = {}
@@ -1890,8 +1011,9 @@ def phase_recipe_datasets(tmp: str, voc_root: str, isic_zip: str, isic_cutmix: d
     settings._config = None
     results = os.path.join(tmp, "results_recipes")
 
+    # the pascal-cutmix cell's line
     rec, engine, log = _checked_run(results, PASCAL_AUG_CUTMIX, "pascal_aug_cutmix",
-                                    RECIPE_ITERS, NUM_CLASSES)
+                                    RECIPE_ITERS, NUM_CLASSES, timed=False)
     if rec["resident"] or f"len(unsup_ndx)={SBD_TRAIN_AUG}" not in log \
             or f"len(val_ndx)={VOC_VAL}" not in log:
         raise RuntimeError("pascal_aug: not the SBD split streamed from the host")
@@ -1899,8 +1021,7 @@ def phase_recipe_datasets(tmp: str, voc_root: str, isic_zip: str, isic_cutmix: d
     note(f"[recipes] Pascal CutMix line with --dataset=pascal_aug --split_path=split_0.pkl "
          f"--n_sup=100 ({SBD_TRAIN_AUG} train_aug names, {VOC_VAL} val; streamed, as "
          f"--data_on_device auto decides at {SBD_TRAIN_AUG} x 1,048,584 B): epoch 1 "
-         f"{rec['losses']}, VAL mIoU {rec['val_miou']:.4f}; {rec['ms_per_iter']:.2f} "
-         f"ms/iteration (the first included); {rec['launches']} {KERNEL} launches")
+         f"{rec['losses']}, VAL mIoU {rec['val_miou']:.4f}; {rec['launches']} {KERNEL} launches")
     del engine
     torch.cuda.empty_cache()
 
@@ -1940,27 +1061,27 @@ def phase_recipe_datasets(tmp: str, voc_root: str, isic_zip: str, isic_cutmix: d
     torch.cuda.empty_cache()
     out["isic_store"] = {"auto": {k: v for k, v in store["auto"].items() if k != "batch"},
                          "off": {k: v for k, v in store["off"].items() if k != "batch"},
-                         "max_abs_err_images": img_err, "off_run": rec_off,
-                         "auto_ms_per_iter": isic_cutmix["ms_per_iter"]}
+                         "max_abs_err_images": img_err, "off_run": rec_off}
     note(f"[recipes] ISIC CutMix line, first augmented batch resident (auto) vs streamed (off): "
          f"labels bit-equal, images max_abs_err {img_err:.3g}; per iteration shipped "
          f"{store['auto']['shipped_mb']:.4f} MB vs {store['off']['shipped_mb']:.2f} MB, copy "
          f"{store['auto']['copy_ms']:.3f} ms vs {store['off']['copy_ms']:.3f} ms, augmentation "
          f"(with the gather) {store['auto']['augment_ms']:.2f} ms vs "
          f"{store['off']['augment_ms']:.2f} ms (medians of {STORE_ITERS - 1}); trainer "
-         f"{isic_cutmix['ms_per_iter']:.2f} ms/iteration resident (phase 6c) vs "
-         f"{rec_off['ms_per_iter']:.2f} streamed ({ISIC_ITERS} iterations, the first included)")
+         f"{rec_off['ms_per_iter']:.2f} ms/iteration streamed ({ISIC_ITERS} iterations, the "
+         f"first included)")
 
-    # the phase-6 Pascal CutMix line with the store on
+    # the phase-6 Pascal CutMix line with the store on: the pascal-cutmix-resident cell's
     rec, engine, log = _checked_run(
         results, RECIPE_FLAGS + ["--data_on_device=on", f"--iters_per_epoch={RECIPE_ITERS}",
-                                 "--num_epochs=1"], "voc_cutmix_on", RECIPE_ITERS, NUM_CLASSES)
+                                 "--num_epochs=1"], "voc_cutmix_on", RECIPE_ITERS, NUM_CLASSES,
+        timed=False)
     if f"Data on device: {VOC_TRAIN} canvases" not in log:
         raise RuntimeError("VOC --data_on_device on: the store was not staged")
     out["voc_on"] = rec
     note(f"[recipes] Pascal CutMix line on the VOC tree with --data_on_device on "
-         f"({VOC_TRAIN} canvases staged): epoch 1 {rec['losses']}; {rec['ms_per_iter']:.2f} "
-         f"ms/iteration (the first included); {rec['launches']} {KERNEL} launches")
+         f"({VOC_TRAIN} canvases staged): epoch 1 {rec['losses']}; {rec['launches']} {KERNEL} "
+         f"launches")
     del engine
     torch.cuda.empty_cache()
     return out
@@ -1974,7 +1095,7 @@ MSEED_SEEDS = "12345,23456"
 # 2 + 2 on the two ranks, every batch-statistics BN sees 8 or more values
 # per channel on a rank
 DDP_CASES = {
-    "deeplab2 cutmix frozen BN": (_tiny_deeplab2, (4, 33, 33),
+    "deeplab2 cutmix frozen BN": (tiny_deeplab2, (4, 33, 33),
                                   MaskConsistencyConfig(conf_thresh=0.34)),
     "resunet cutmix training BN + dropout": (lambda: ResUNet(4, layers=TINY), (4, 64, 64),
                                              MaskConsistencyConfig(conf_thresh=0.34,
@@ -2031,7 +1152,7 @@ def _ddp_trainer_rank(results: str) -> dict:
     return dict(out, log=log, run_dir=engine.ctx.run_dir)
 
 
-def phase_ddp_trainer(voc_root: str, trainer_ms: float) -> dict:
+def phase_ddp_trainer(voc_root: str) -> dict:
     """7a: the Pascal CutMix line under a process group: NCCL at world 1 in
     this process (world 2, one card per rank, where there are two cards)."""
     results = os.path.join(os.path.dirname(voc_root), "results_ddp")
@@ -2061,13 +1182,12 @@ def phase_ddp_trainer(voc_root: str, trainer_ms: float) -> dict:
            "img_per_s": r["images_per_sec"]}
     note(f"[ddp] 7a: Pascal CutMix line under a {world}-rank NCCL group (global batch "
          f"{BATCH * world}): epoch 1 {losses}, VAL mIoU {r['val_miou']:.4f}; "
-         f"{out['ms_per_iter']:.2f} ms/iteration over {DDP_ITERS} (the first included) beside "
-         f"phase 6's {trainer_ms:.2f} ms/iteration without a group; {rec['launches']} {KERNEL} "
-         f"launches; rank 0's checkpoint {ckpts}")
+         f"{out['ms_per_iter']:.2f} ms/iteration over {DDP_ITERS} (the first included); "
+         f"{rec['launches']} {KERNEL} launches; rank 0's checkpoint {ckpts}")
     return out
 
 
-class _GlobalHostMasks(_HostMasks):
+class _GlobalHostMasks(HostMasks):
     """Dropout keep masks by call order for the global batch (call k from
     seed 500 + k), each rank taking its data index's rows (under spatial
     partitioning the port asks for the full maps' masks and keeps its
@@ -2088,9 +1208,9 @@ class _GlobalHostMasks(_HostMasks):
 def _ddp_inputs(name: str):
     make_module, (n, h, w), cfg = DDP_CASES[name]
     rng = np.random.RandomState(7)
-    nb = _tiny_batch("mask_mt", n, h, w, rng)
-    draws = [_tiny_draws("mask_mt", n, h, w, rng) for _ in range(DDP_STEPS)]
-    return make_module, cfg, _tiny_weights(6, make_module()), nb, draws
+    nb = tiny_batch("mask_mt", n, h, w, rng)
+    draws = [tiny_draws("mask_mt", n, h, w, rng) for _ in range(DDP_STEPS)]
+    return make_module, cfg, tiny_weights(6, make_module()), nb, draws
 
 
 def _ddp_case(name: str, mesh) -> tuple:
@@ -2103,7 +1223,7 @@ def _ddp_case(name: str, mesh) -> tuple:
     try:
         local = {k: local_rows(v, mesh) for k, v in nb.items()}
         make = lambda model, opt, c: make_mask_mt_step(model, opt, c, mesh)  # noqa: E731
-        return _run_tiny("cuda", sd, make_module, cfg, make, local, draws, masks)
+        return run_tiny("cuda", sd, make_module, cfg, make, local, draws, masks)
     finally:
         Dropout.draw_keep = draw_keep
 
@@ -2141,20 +1261,20 @@ def phase_ddp_steps(tmp: str) -> dict:
             raise RuntimeError(f"7b {name}: the ranks' states differ")
         one = _ddp_case(name, None)
         _, (n, h, w), _ = DDP_CASES[name]
-        _check_small_run(f"2 ranks gloo {name}", {"cpu": one, "cuda": ranks[0]["runs"][name]},
+        check_small_run(f"2 ranks gloo {name}", {"cpu": one, "cuda": ranks[0]["runs"][name]},
                          n * h * w, DDP_STEPS, 3e-4, labels=("one process", "2 ranks"))
     launches = sum(r["launches"] for r in ranks)
     want = 2 * len(DDP_CASES) * DDP_STEPS
     if launches != want:
         raise RuntimeError(f"7b: expected {want} {KERNEL} launches over the ranks, got {launches}")
     note(f"[ddp] 7b: {sorted(DDP_CASES)} at 2 + 2 over two gloo ranks on one card: ranks "
-         f"bit-identical after each of {DDP_STEPS} steps, within phase 3b's bounds of one "
+         f"bit-identical after each of {DDP_STEPS} steps, within check_small_run's bounds of one "
          f"process; {launches} {KERNEL} launches (one per rank per step); the ranks took "
          f"{t_ranks:.1f} s with their start-up")
     return {"launches": launches, "ranks_s": t_ranks}
 
 
-def phase_multi_seed(voc_root: str, trainer_ms: float) -> dict:
+def phase_multi_seed(voc_root: str) -> dict:
     """7c: the multi-seed trainer with two seeds on the Pascal CutMix line."""
     results = os.path.join(os.path.dirname(voc_root), "results_mseed")
     params = dict(mseed.experiment.make_context(
@@ -2193,8 +1313,8 @@ def phase_multi_seed(voc_root: str, trainer_ms: float) -> dict:
     ms = took[0] / DDP_ITERS * 1e3
     note(f"[mseed] 7c: seeds {MSEED_SEEDS} in turn on the Pascal CutMix line: {lines}; "
          f"{agg[0]}; {launches} {KERNEL} launches (one per seed per iteration); "
-         f"{ms:.2f} ms/iteration of both seeds (the first included) beside phase 6's "
-         f"{trainer_ms:.2f} ms/iteration of one; peak {peak:.2f} GiB with two states resident")
+         f"{ms:.2f} ms/iteration of both seeds (the first included); peak {peak:.2f} GiB with "
+         f"two states resident")
     del states
     torch.cuda.empty_cache()
     return {"launches": launches, "ms_per_iter": ms, "peak_mem_gib": peak, "aggregate": agg[0]}
@@ -2207,16 +1327,16 @@ def phase_multi_seed(voc_root: str, trainer_ms: float) -> dict:
 # 18, 9 and 5 (its image pooling, half-pixel resizes and dropout masks of
 # the full maps; the masks drawn on the host, the same in both runs)
 SPATIAL_CASES = {
-    "deeplab2 cutmix": ("mask_mt", _tiny_deeplab2, (2, 36, 33),
+    "deeplab2 cutmix": ("mask_mt", tiny_deeplab2, (2, 36, 33),
                         MaskConsistencyConfig(conf_thresh=0.34), make_mask_mt_step),
-    "deeplab2 cutout per-pixel gate": ("mask_mt", _tiny_deeplab2, (2, 36, 33),
+    "deeplab2 cutout per-pixel gate": ("mask_mt", tiny_deeplab2, (2, 36, 33),
                                        MaskConsistencyConfig(mask_mode="zero", conf_thresh=0.34,
                                                              conf_per_pixel=True),
                                        make_mask_mt_step),
-    "deeplab2 ict": ("ict", _tiny_deeplab2, (2, 36, 33), TINY_ALGOS["ict"][0], make_ict_step),
-    "deeplab2 vat adaptive radius": ("vat_adaptive", _tiny_deeplab2, (2, 36, 33),
+    "deeplab2 ict": ("ict", tiny_deeplab2, (2, 36, 33), TINY_ALGOS["ict"][0], make_ict_step),
+    "deeplab2 vat adaptive radius": ("vat_adaptive", tiny_deeplab2, (2, 36, 33),
                                      TINY_ALGOS["vat_adaptive"][0], make_vat_step),
-    "deeplab2 aug_mt": ("aug_mt", _tiny_deeplab2, (2, 36, 33), TINY_ALGOS["aug_mt"][0],
+    "deeplab2 aug_mt": ("aug_mt", tiny_deeplab2, (2, 36, 33), TINY_ALGOS["aug_mt"][0],
                         make_aug_cons_step),
     "deeplabv3plus cutmix": ("mask_mt", lambda: DeepLabV3Plus(4, layers=TINY), (4, 36, 33),
                              MaskConsistencyConfig(conf_thresh=0.0), make_mask_mt_step),
@@ -2240,18 +1360,18 @@ def _spatial_case(name: str, mesh, cases=None) -> tuple:
     process: _run_tiny's (metrics, tensors)."""
     algo, make_module, (n, h, w), cfg, make_step = (cases or SPATIAL_CASES)[name]
     rng = np.random.RandomState(9)
-    nb = _tiny_batch(algo, n, h, w, rng)
+    nb = tiny_batch(algo, n, h, w, rng)
     if algo == "mask_mt" and cfg.mask_mode == "zero":
         nb = {"sup_x": nb["sup_x"], "sup_y": nb["sup_y"], "ux_tea": nb["ux0_tea"],
               "ux_stu": nb["ux0_stu"], "um": nb["um0"]}
-    draws = [_tiny_draws(algo, n, h, w, rng) for _ in range(SPATIAL_STEPS)]
+    draws = [tiny_draws(algo, n, h, w, rng) for _ in range(SPATIAL_STEPS)]
     local = {k: local_rows(v, mesh) for k, v in nb.items()}
     make = lambda model, opt, c: make_step(model, opt, c, mesh)  # noqa: E731
     masks = _GlobalHostMasks(mesh)
     draw_keep = Dropout.draw_keep
     Dropout.draw_keep = lambda self, x: masks.draw(self, x)
     try:
-        return _run_tiny("cuda", _tiny_weights(8, make_module()), make_module, cfg, make, local,
+        return run_tiny("cuda", tiny_weights(8, make_module()), make_module, cfg, make, local,
                          draws, masks)
     finally:
         Dropout.draw_keep = draw_keep
@@ -2291,7 +1411,7 @@ def phase_spatial_steps(tmp: str, cases=None, tag: str = "8a") -> dict:
             raise RuntimeError(f"{tag} {name}: the ranks' states differ")
         one = _spatial_case(name, None, cases)
         _, _, (n, h, w), _, _ = cases_[name]
-        _check_small_run(f"H split over 2 ranks {name}",
+        check_small_run(f"H split over 2 ranks {name}",
                          {"cpu": one, "cuda": ranks[0]["runs"][name]}, n * h * w,
                          SPATIAL_STEPS, 3e-4, labels=("one process", "2 ranks"))
     per_rank = [r["launches"] for r in ranks]
@@ -2303,15 +1423,15 @@ def phase_spatial_steps(tmp: str, cases=None, tag: str = "8a") -> dict:
     if cases:
         note(f"[spatial families] 12a: {sorted(cases)} with the rows split over two gloo "
              f"ranks on one card: ranks bit-identical after each of {SPATIAL_STEPS} steps, "
-             f"within phase 3's bounds of one process; {per_rank} {KERNEL} launches per rank "
-             f"(one per CutMix step, on the full crops; none on the others); the ranks took "
-             f"{t_ranks:.1f} s with their start-up")
+             f"within check_small_run's bounds of one process; {per_rank} {KERNEL} launches "
+             f"per rank (one per CutMix step, on the full crops; none on the others); the "
+             f"ranks took {t_ranks:.1f} s with their start-up")
         return {"launches": sum(per_rank), "ranks_s": t_ranks}
     note(f"[spatial] 8a: {sorted(SPATIAL_CASES)} at 36x33 crops (DeepLab v2 feature maps of "
          f"18, 10, 5 rows; v3+ 18, 9, 5) with the rows split over two gloo ranks on one card: "
-         f"ranks bit-identical after each of {SPATIAL_STEPS} steps, within phase 3's bounds of "
-         f"one process; {per_rank} {KERNEL} launches per rank (one per CutMix step, on the "
-         f"full crops; none on the ICT, VAT, aug_mt and Cutout steps); the ranks took "
+         f"ranks bit-identical after each of {SPATIAL_STEPS} steps, within check_small_run's "
+         f"bounds of one process; {per_rank} {KERNEL} launches per rank (one per CutMix step, "
+         f"on the full crops; none on the ICT, VAT, aug_mt and Cutout steps); the ranks took "
          f"{t_ranks:.1f} s with their start-up")
     return {"launches": sum(per_rank), "ranks_s": t_ranks}
 
@@ -2836,7 +1956,7 @@ def phase_serving(tmp: str) -> dict:
                                "--artifact", art, "--port", str(port)],
                               cwd=os.path.dirname(os.path.abspath(__file__)))
     try:
-        # f32 logits at batch 2, TF32 off (phase 3 turned it off)
+        # f32 logits at batch 2, TF32 off (main turns it off)
         f32 = export_model.build_net(SERVE_ARCH, NUM_CLASSES, params, "float32")
         art32 = os.path.join(out, "logits_f32.pt2")
         export_serving_artifact(f32, SERVE_HW, art32, output="logits", device="cuda")
@@ -3062,7 +2182,7 @@ def _toy_lockstep(sd, model: str, norm: str, draws) -> list:
 
 def phase_toy2d(tmp: str) -> dict:
     """9c: each model x norm of the toy2d step at full width, GPU against CPU
-    (f32, TF32 off, injected draws, phase 3's bounds); then the three recipe
+    (f32, TF32 off, injected draws, check_small_run's bounds); then the three recipe
     lines of run_toy2d_experiments.sh through the port's CLI at 2 epochs."""
     from cutmix_seg_tpu_torch.toy2d import train as toy_train
     from cutmix_seg_tpu_torch.toy2d.model import NORMS, ToyMLP
@@ -3110,7 +2230,7 @@ def phase_toy2d(tmp: str) -> dict:
                      "renders": len(renders)}
     launches = build.launch_counts.get(KERNEL, 0)
     note(f"[toy2d] 9c: 3 models x {len(NORMS)} norms, {TOY_STEPS} lockstep steps at width 512, GPU "
-         f"against CPU within phase 3's bounds ({check_s:.1f} s); the recipe lines at "
+         f"against CPU within check_small_run's bounds ({check_s:.1f} s); the recipe lines at "
          f"{TOY_EPOCHS} epochs: " + ", ".join(
              f"{n} error {r['err']:.4%}, s/epoch {[round(s, 3) for s in r['epoch_s']]}, "
              f"{r['renders']} renders" for n, r in out.items())
@@ -3208,8 +2328,8 @@ def _sync_sweep_states(dst: dict, src: dict) -> None:
 def _sweep_lockstep() -> None:
     """The CutMix arm for SWEEP_LOCKSTEP iterations on the CPU and the card
     in lockstep (each iteration of both from the CPU's states), f32 with
-    TF32 off, the same rects on both, phase 3's bounds per iteration. The
-    seeds start from phase 3's He-scaled weights (O(1) logits; the tool's
+    TF32 off, the same rects on both, check_small_run's bounds per iteration. The
+    seeds start from tiny_weights' He-scaled weights (O(1) logits; the tool's
     initialisation gives near-uniform ones, whose consistency loss is
     rounding noise) with the gate at 0, so the consistency loss is on."""
     rng = np.random.RandomState(10)
@@ -3220,7 +2340,7 @@ def _sweep_lockstep() -> None:
     arms = {dev: _sweep_arm(dev, "mask_mt", SWEEP_LOCKSTEP, 0.0, seen[dev], made[dev])
             for dev in ("cpu", "cuda")}
     for k in range(SWEEP_SEEDS):
-        sd = _tiny_weights(30 + k, tconv.make_model().module)
+        sd = tiny_weights(30 + k, tconv.make_model().module)
         for _, states, *_ in arms.values():
             states[k].student.load_state_dict(sd)
             states[k].teacher.load_state_dict(sd)
@@ -3236,7 +2356,7 @@ def _sweep_lockstep() -> None:
                        for part, net in (("student", st.student), ("teacher", st.teacher))
                        for n, v in net.state_dict().items()}
             runs[dev] = (seen[dev][n0:], [tensors])
-        _check_small_run(f"sweep mask_mt iteration {t}", runs, 8 * 64 * 64, 1, 1e-3)
+        check_small_run(f"sweep mask_mt iteration {t}", runs, 8 * 64 * 64, 1, 1e-3)
         _sync_sweep_states(arms["cuda"][1], arms["cpu"][1])
     note(f"[sweep] 10a: lockstep, the card's step graphs per seed: "
          f"{[s.counters() for s in made['cuda']]}")
@@ -3525,7 +2645,7 @@ def phase_patch_study(tmp: str, voc_root: str) -> dict:
 
 def rank_main(argv) -> int:
     """A rank process of phase 7a (two cards; ``out_dir`` is the results
-    root), 7b, 7d, 8a, 8b, 11a, 12a or 12b-c."""
+    root), 7b, 8a, 8b, 11a, 12a or 12b-c."""
     kind, out_dir = argv
     rank = int(os.environ["RANK"])
     run = {"ddp_trainer": lambda: _ddp_trainer_rank(out_dir), "ddp_steps": _ddp_steps_rank,
@@ -3533,8 +2653,7 @@ def rank_main(argv) -> int:
            "spatial_trainer": lambda: _spatial_trainer_rank(out_dir),
            "spatial_lines": lambda: _spatial_lines_rank(out_dir),
            "family_steps": lambda: _spatial_steps_rank(FAMILY_CASES),
-           "family_lines": lambda: _spatial_lines_rank(out_dir, FAMILY_LINES),
-           "bn_mesh": _bn_mesh_rank}[kind]
+           "family_lines": lambda: _spatial_lines_rank(out_dir, FAMILY_LINES)}[kind]
     torch.save(run(), os.path.join(out_dir, f"{kind}_{rank}.pt"))
     return 0
 
@@ -3548,32 +2667,24 @@ def main() -> int:
     smi = phase_build()["nvidia_smi"]
     k = phase_kernel_vs_plain()
     bn = phase_bn_kernels()
-    phase_small_step()
-    phase_small_step_families()
-    phase_small_step_accum()
-    full = phase_full_step()
+    # float32 convolutions and matrix products without TF32 from here on: the
+    # card-against-CPU comparisons of the later phases assume it
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     full_algos = {}
     for algo in FULL_ALGOS:
         torch.cuda.empty_cache()
         full_algos[algo] = phase_full_step(algo)
-    note("[full] bare step beside phase 4's mask_mt in this call: " + ", ".join(
+    note("[full] bare steps in this call: " + ", ".join(
         f"{a} {r['ms_per_step']:.2f} ms/step ({r['img_per_s']:.2f} img/s, peak "
-        f"{r['peak_mem_gib']:.2f} GiB)"
-        for a, r in [("mask_mt", full)] + list(full_algos.items())))
-    recipe_steps = {}
-    for name in RECIPE_STEPS:
-        torch.cuda.empty_cache()
-        recipe_steps[name] = phase_recipe_step(name)
+        f"{r['peak_mem_gib']:.2f} GiB)" for a, r in full_algos.items()))
     accum = {}
     for name in ACCUM_STEPS:
         dense = name.startswith("densenet")
-        for accum_k in ((ACCUM_K,) if dense else (1, ACCUM_K)):
-            torch.cuda.empty_cache()
-            accum[f"{name} K={accum_k}"] = phase_recipe_step(
-                name, [f"--grad_accum={accum_k}"], *((DENSE_WARMUP, DENSE_ITERS) if dense else ()),
-                tag="accum step")
-    accum["densenet161unet ISIC K=1"] = recipe_steps["densenet161unet ISIC"]
-    note("[accum step] grad_accum 1 vs 2 in this call: " + ", ".join(
+        torch.cuda.empty_cache()
+        accum[f"{name} K={ACCUM_K}"] = phase_accum_step(
+            name, ACCUM_K, *((DENSE_WARMUP, DENSE_ITERS) if dense else (WARMUP, ITERS)))
+    note(f"[accum step] grad_accum {ACCUM_K} in this call: " + ", ".join(
         f"{n} {r['ms_per_step']:.2f} ms/step, peak {r['peak_mem_gib']:.2f} GiB"
         for n, r in sorted(accum.items())))
     torch.cuda.empty_cache()
@@ -3583,21 +2694,19 @@ def main() -> int:
                                   sbd_train=SBD_TRAIN_AUG)
         note(f"[recipes] synthetic VOC tree, {VOC_TRAIN} + {VOC_VAL} images and the SBD split's "
              f"{SBD_TRAIN_AUG} linked train_aug names, written in {time.perf_counter() - t0:.2f} s")
-        phase_augment_eval(voc_root)
-        trainer = phase_trainer(voc_root, full["ms_per_step"])
+        trainer = phase_trainer(voc_root)
         trainers = phase_trainers_algos(
             voc_root, {a: r["ms_per_step"] for a, r in full_algos.items()})
         isic_zip = write_isic_zip(os.path.join(tmp, "isic2017.zip"), ISIC_TRAIN, ISIC_VAL, seed=0)
         isic = phase_isic_trainers(tmp, voc_root, isic_zip)
-        recipes = phase_recipe_datasets(tmp, voc_root, isic_zip, isic["cutmix"])
+        recipes = phase_recipe_datasets(tmp, voc_root, isic_zip)
         torch.cuda.empty_cache()
         t7 = time.perf_counter()
         os.environ["CUTMIX_SEG_CONFIG"] = write_config(os.path.join(tmp, "seg.cfg"), voc_root)
         settings._config = None
-        ddp = phase_ddp_trainer(voc_root, trainer["ms_per_iter"])
+        ddp = phase_ddp_trainer(voc_root)
         ddp_steps = phase_ddp_steps(tmp)
-        bn_mesh = phase_bn_mesh(tmp)
-        multi_seed = phase_multi_seed(voc_root, trainer["ms_per_iter"])
+        multi_seed = phase_multi_seed(voc_root)
         note(f"[phase 7] {time.perf_counter() - t7:.1f} s")
         torch.cuda.empty_cache()
         t8 = time.perf_counter()
@@ -3630,20 +2739,17 @@ def main() -> int:
         "source": "cutmix_seg_tpu_torch/csrc/cutmix_blend.cu",
         "replaces": "cutmix_seg_tpu/ops/pallas_cutmix.py:46",
         "launches": trainer["launches"], "max_abs_err": k["max_abs_err"],
-        "launches_by_path": {"step (phase 4)": full["launches"].get(KERNEL, 0),
-                             "trainer (phase 6)": trainer["launches"],
+        "launches_by_path": {"trainer (phase 6)": trainer["launches"],
                              "trainer --resume (phase 6)": trainer["launches_resume"],
                              **{f"step {a} (phase 4b)": r["launches"].get(KERNEL, 0)
                                 for a, r in full_algos.items()},
                              **{f"trainer {a} (phase 6b)": r["launches"]
                                 for a, r in trainers.items()},
-                             **{f"step {n} (phase 4c)": r["launches"]
-                                for n, r in recipe_steps.items()},
                              **{f"trainer ISIC {n} (phase 6c)": r["launches"]
                                 for n, r in isic.items() if n != "v3plus_cutmix"},
                              "trainer v3+ cutmix (phase 6c)": isic["v3plus_cutmix"]["launches"],
-                             **{f"step {n} (phase 4d)": r["launches"] for n, r in accum.items()
-                                if not n.startswith("densenet161unet ISIC K=1")},
+                             **{f"step {n} (phase 4d)": r["launches"]
+                                for n, r in accum.items()},
                              "trainer ISIC cutmix, store resident (phase 6c)":
                                  isic["cutmix"]["launches"],
                              "trainer ISIC cutmix, streamed (phase 6d)":
@@ -3700,10 +2806,13 @@ def main() -> int:
     }, {
         "name": "bn_train", "route": "cuda", "source": "cutmix_seg_tpu_torch/csrc/bn_train.cu",
         "replaces": None, "kernels": list(batchnorm.KERNELS),
-        "launches_by_path": {f"step {n} (phase 4c)": r["bn_launches"]
-                             for n, r in recipe_steps.items()},
+        "launches_by_path": {
+            **{f"trainer ISIC {n} (phase 6c)": r["bn_launches"]
+               for n, r in isic.items() if n != "v3plus_cutmix"},
+            "trainer v3+ cutmix (phase 6c)": isic["v3plus_cutmix"]["bn_launches"],
+            **{f"step {n} (phase 4d)": r["bn_launches"] for n, r in accum.items()}},
         "densenet161_calls": bn["calls"], "densenet161_shapes": bn["shapes"],
-        "worst_gap": bn["worst"], "mesh_worst_gap": bn_mesh["worst"],
+        "worst_gap": bn["worst"], "mesh_worst_gap": bn["mesh_worst"],
         "iteration_ms": bn["iteration_ms"], "iteration_bound_ms": bn["iteration_bound_ms"],
         "timed_us": {str(s): {k: [round(t * 1e3, 3) for t in v] for k, v in r.items()}
                      for s, r in bn["timed"].items()},

@@ -25,14 +25,12 @@ vector variant; any other (contiguous NCHW, other channel counts, views)
 their one-element variant, through its strides. Only x and a few
 per-channel float32 vectors are saved for the backward.
 
-Counters, so a run can show its path: ``build.launch_counts`` counts each
-kernel's launches by name (``KERNELS``), and ``plain_calls`` the plain
-version's calls on a CUDA tensor (``counters()``).
+A run shows its path in ``build.launch_counts``, each kernel's launches by
+name (``KERNELS``; ``counters()`` sums them).
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 from typing import Optional, Tuple
@@ -52,17 +50,10 @@ _MAX_CV = 32          # channel vectors of a block
 _BLOCKS_PER_SM = 8    # the grid the wrapper aims at
 _STAT_ROWS, _COEF_ROWS = 5, 2
 
-# calls of the plain version on a CUDA tensor ("cuda"), which the port's
-# training path never makes
-plain_calls: collections.Counter = collections.Counter()
-
-
 def counters() -> dict:
     """Launches of the BN kernels since the last clear of
-    ``build.launch_counts``, and calls of the plain version on a CUDA
-    tensor."""
-    return {"bn_launches": sum(build.launch_counts.get(k, 0) for k in KERNELS),
-            "bn_plain_cuda_calls": plain_calls.get("cuda", 0)}
+    ``build.launch_counts``."""
+    return {"bn_launches": sum(build.launch_counts.get(k, 0) for k in KERNELS)}
 
 
 def batch_norm_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -94,8 +85,6 @@ class _Plain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias, running, momentum, eps, mesh, relu):
-        if x.is_cuda:
-            plain_calls["cuda"] += 1
         dt = torch.promote_types(x.dtype, torch.float32)
         xc = x.to(dt)
         c = x.shape[1]

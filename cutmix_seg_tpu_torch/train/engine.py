@@ -36,9 +36,8 @@ stay on the device and are fetched once per epoch (and every
 ``nan_check_interval`` iterations for the NaN check). The mask_mt step is
 replayed from a CUDA graph from its second iteration on
 (``semisup.step_graph``); its counters go into each epoch's JSONL line,
-beside those of the training-BN kernels (``ops.batchnorm.counters``: their
-launches, and the plain version's calls on a CUDA tensor). Each part of an
-iteration is a ``record_function`` span (trainer.fetch, trainer.copy,
+beside the training-BN kernels' launches (``ops.batchnorm.counters``). Each
+part of an iteration is a ``record_function`` span (trainer.fetch, trainer.copy,
 trainer.augment, trainer.step), and inside trainer.step the step marks its
 phases (step.perturb, step.teacher, step.student, step.backward,
 step.update; ``semisup.stepcore``), so a ``--profile_dir`` trace

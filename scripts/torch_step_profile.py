@@ -4,10 +4,10 @@
     python3 scripts/torch_step_profile.py --recipe "densenet161unet ISIC"
     python3 scripts/torch_step_profile.py --recipe "deeplabv3plus Pascal" --spans
 
-Builds the full-width configuration of chip_smoke.py for ``--algorithm``
+Builds the full-width step of tests/_torch_card.py for ``--algorithm``
 (DeepLab v2 R101, bf16, 321x321; mask_mt: the bench.py recipe at bs
-10+10+10; ict, vat_mt, aug_mt: the Pascal recipe's lines, phase 4b) or, with
-``--recipe``, one of phase 4c's CutMix lines (DenseUNet-161 ISIC with
+10+10+10; ict, vat_mt, aug_mt: the Pascal recipe's lines) or, with
+``--recipe``, one of the recipes' CutMix lines (DenseUNet-161 ISIC with
 training BN, DeepLab v3+ Pascal) on one
 GPU, runs 3 warm-up steps, then records ``--steps`` steps with
 torch.profiler (CPU + CUDA). It prints the card, the window's wall time per
@@ -41,7 +41,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from chip_smoke import RECIPE_STEPS, make_full_step, make_recipe_step  # noqa: E402
+from tests._torch_card import RECIPE_STEPS, make_full_step, make_recipe_step  # noqa: E402
 from cutmix_seg_tpu_torch.semisup.stepcore import step_scalars  # noqa: E402
 
 SPANS = ("model.aspp", "model.decoder")

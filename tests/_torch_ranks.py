@@ -17,6 +17,7 @@ the global batch: the port at world 1.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import datetime
 import hashlib
@@ -37,9 +38,10 @@ from cutmix_seg_tpu_torch.core import train_state as tts
 from cutmix_seg_tpu_torch.models import common as tcommon
 from cutmix_seg_tpu_torch.models import deeplab3, denseunet, pspnet, resunet
 from cutmix_seg_tpu_torch.models.deeplab2 import DeepLab2, _param_label
-from cutmix_seg_tpu_torch.ops import batchnorm
+from cutmix_seg_tpu_torch.ops import batchnorm, build
 from cutmix_seg_tpu_torch.parallel.mesh import Mesh, all_reduce_grads, local_rows
 from cutmix_seg_tpu_torch.semisup import aug_cons, ict, mask_mt, vat
+from tests import _torch_card as card
 
 ROOT = Path(__file__).resolve().parents[1]
 LR = 3e-4
@@ -321,6 +323,79 @@ def bn_train_run(inp: dict, mesh, relu: bool) -> dict:
 def task_bn_train(task, mesh):
     inp = bn_train_inputs()
     return {relu: bn_train_run(inp, mesh, relu) for relu in (False, True)}
+
+
+# ---- the training-BN kernels on the card under a mesh ----
+
+BN_CARD_SHAPE = (4, 96, 28, 28)
+BN_CARD_CASES = [(dtype, relu) for dtype in (torch.bfloat16, torch.float32)
+                 for relu in (True, False)]
+
+
+def bn_card_run(mesh, dtype, relu) -> dict:
+    """The kernels on this rank's rows of the global batch (made on the
+    host from a seed): outputs, input gradient, the weight and bias
+    gradients summed over the ranks, running statistics, launches."""
+    gen = torch.Generator().manual_seed(23)
+    x = (torch.randn(BN_CARD_SHAPE, generator=gen) * 1.5 + 0.3).to(dtype)
+    dy = torch.randn(BN_CARD_SHAPE, generator=gen).to(dtype)
+    vectors = {"weight": torch.rand(BN_CARD_SHAPE[1], generator=gen) + 0.5,
+               "bias": torch.rand(BN_CARD_SHAPE[1], generator=gen) - 0.5}
+    if relu:
+        dy = card.off_the_kink(x, dy, vectors)
+    weight = vectors["weight"].cuda().requires_grad_(True)
+    bias = vectors["bias"].cuda().requires_grad_(True)
+    x, dy = (local_rows(t, mesh).cuda().contiguous(memory_format=torch.channels_last)
+             for t in (x, dy))
+    x.requires_grad_(True)
+    running = (torch.zeros(BN_CARD_SHAPE[1], device="cuda"),
+               torch.ones(BN_CARD_SHAPE[1], device="cuda"))
+    before = collections.Counter(build.launch_counts)
+    y = batchnorm.batch_norm_train(x, weight, bias, running, card.BN_MOMENTUM, card.BN_EPS,
+                                   mesh, relu)
+    fwd = collections.Counter(build.launch_counts) - before
+    y.backward(dy)
+    if mesh is not None:
+        all_reduce_grads([weight, bias])
+    torch.cuda.synchronize()
+    return {"y": y.detach().cpu(), "x_grad": x.grad.cpu(), "weight_grad": weight.grad.cpu(),
+            "bias_grad": bias.grad.cpu(), "running_mean": running[0].cpu(),
+            "running_var": running[1].cpu(), "fwd_launches": sum(fwd.values()),
+            "launches": sum((collections.Counter(build.launch_counts) - before).values())}
+
+
+def task_bn_card(task, mesh):
+    return {"world": mesh.size, "runs": {case: bn_card_run(mesh, *case)
+                                         for case in BN_CARD_CASES}}
+
+
+def bn_card_check(tmp_path, world: int) -> float:
+    """``world`` gloo ranks sharing the card, each on its rows of
+    BN_CARD_SHAPE, bf16 and float32, ReLU on and off, against the kernels
+    over the whole batch in this process: one rank bit for bit, two within
+    float32 summation order (weight and bias gradients summed over the
+    ranks); 4 launches a forward and 4 a backward on every rank. The worst
+    gap (``_torch_card.bn_gap``, 1 = at the tolerance); raises
+    AssertionError."""
+    one = {case: bn_card_run(None, *case) for case in BN_CARD_CASES}
+    out = run_ranks(tmp_path, {"kind": "bn_card"}, world, timeout=300)
+    rows, worst = BN_CARD_SHAPE[0] // world, 0.0
+    for r, rank in enumerate(out):
+        assert rank["world"] == world
+        for case, want in one.items():
+            got = rank["runs"][case]
+            assert (got["fwd_launches"], got["launches"]) == (4, 8), (case, r)
+            for what in card.BN_LEAVES:
+                w = want[what][r * rows:(r + 1) * rows] if what in ("y", "x_grad") \
+                    else want[what]
+                if world == 1:
+                    assert torch.equal(got[what], w), (case, what)
+                    continue
+                bf16 = case[0] == torch.bfloat16 and what in ("y", "x_grad")
+                gap = card.bn_gap(got[what], w, 2 ** -6 if bf16 else 1e-4, 1e-3)
+                assert gap <= 1.0, (case, r, what, gap)
+                worst = max(worst, gap)
+    return worst
 
 
 # ---- the trainers ----
@@ -822,7 +897,7 @@ def task_stall(task, mesh):
 
 
 TASKS = {"steps": task_steps, "stall": task_stall, "collectives": task_collectives, "bn_grad": task_bn_grad,
-         "bn_train": task_bn_train,
+         "bn_train": task_bn_train, "bn_card": task_bn_card,
          "trainer": task_trainer, "streams": task_streams, "multiseed": task_multiseed,
          "spatial_ops": task_spatial_ops, "spatial_model": task_spatial_model,
          "families": task_families}

@@ -8,7 +8,11 @@ channels-last and contiguous NCHW memory; the module's dispatch (the
 running-average path unchanged, the ReLU of the call sites); the kernels'
 tiling and layout decisions; two gloo ranks against the global batch
 (``tests/_torch_ranks.py``). On the card (``-m cuda``): the kernels against
-the plain version and two runs bit for bit. Imports no JAX."""
+the plain version, two runs bit for bit and one launch of each kernel, on
+shapes of DenseUNet-161's blocks, every BN input shape of one DenseUNet-161
+forward at 10x224^2, and the layouts the vector variant does not take; and
+under one and two gloo ranks sharing the card against the kernels over the
+whole batch. Imports no JAX."""
 
 import numpy as np
 import pytest
@@ -20,27 +24,36 @@ from cutmix_seg_tpu_torch.models.denseunet import DenseUNet
 from cutmix_seg_tpu_torch.models.resunet import ResUNet
 from cutmix_seg_tpu_torch.ops import batchnorm, build
 from tests import _torch_ranks as ranks
+from tests._torch_card import (
+    BN_CASES,
+    BN_EPS,
+    BN_MOMENTUM,
+    BN_SEED,
+    bn_check,
+    bn_run,
+    densenet_bn_calls,
+)
 
 torch.set_num_threads(1)
 
-MOMENTUM, EPS = 0.9, 1e-5
 # tolerances of the hand-written backward against autograd, by dtype: the
 # same function, summed in another order
 TOL = {torch.float64: dict(rtol=1e-10, atol=1e-12), torch.float32: dict(rtol=2e-5, atol=2e-6)}
 
 
-def _former_bn(x, weight, bias, running, relu):
+def _former_bn(x, weight, bias, running, momentum, eps, mesh, relu):
     """``BatchNorm2d.forward``'s training arithmetic before the kernels, in
-    x's dtype where that is float64 (float32 otherwise), for autograd."""
+    x's dtype where that is float64 (float32 otherwise), for autograd
+    (``batch_norm_train``'s arguments; no mesh)."""
     dt = torch.promote_types(x.dtype, torch.float32)
     xc = x.to(dt)
     mean = xc.mean(dim=(0, 2, 3))
     var = torch.clamp_min((xc * xc).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
     if running is not None:
         with torch.no_grad():
-            running[0].copy_(MOMENTUM * running[0] + (1.0 - MOMENTUM) * mean)
-            running[1].copy_(MOMENTUM * running[1] + (1.0 - MOMENTUM) * var)
-    mul = torch.rsqrt(var + EPS) * weight
+            running[0].copy_(momentum * running[0] + (1.0 - momentum) * mean)
+            running[1].copy_(momentum * running[1] + (1.0 - momentum) * var)
+    mul = torch.rsqrt(var + eps) * weight
     y = ((xc - mean[:, None, None]) * mul[:, None, None] + bias[:, None, None]).to(x.dtype)
     return F.relu(y) if relu else y
 
@@ -65,23 +78,6 @@ def _inputs(n, c, h, w, dtype, layout, seed=0, clamp=None):
     return xt, vectors, dy
 
 
-def _run(fn, x, vectors, dy, track, relu):
-    """(y, x.grad, weight.grad, bias.grad, running mean, running var)."""
-    x = x.detach().clone().requires_grad_(True)
-    weight = vectors["weight"].clone().requires_grad_(True)
-    bias = vectors["bias"].clone().requires_grad_(True)
-    running = (vectors["running_mean"].clone(), vectors["running_var"].clone()) if track \
-        else None
-    y = fn(x, weight, bias, running, relu)
-    (y * dy).sum().backward()
-    kept = running if track else (vectors["running_mean"], vectors["running_var"])
-    return y.detach(), x.grad, weight.grad, bias.grad, kept[0], kept[1]
-
-
-def _plain(x, weight, bias, running, relu):
-    return batchnorm.batch_norm_train(x, weight, bias, running, MOMENTUM, EPS, None, relu)
-
-
 @pytest.mark.parametrize("layout", ["channels_last", "nchw"])
 @pytest.mark.parametrize("c", [8, 6], ids=["c8", "c6"])
 @pytest.mark.parametrize("track", [True, False], ids=["track", "kept"])
@@ -93,8 +89,8 @@ def test_plain_version_matches_autograd_of_the_former_arithmetic(dtype, relu, tr
     bit for bit, the input, weight and bias gradients to the dtype's
     rounding."""
     x, vectors, dy = _inputs(3, c, 5, 7, dtype, layout, seed=c)
-    got = _run(_plain, x, vectors, dy, track, relu)
-    want = _run(_former_bn, x, vectors, dy, track, relu)
+    got = bn_run(batchnorm.batch_norm_train, x, vectors, dy, relu, track)
+    want = bn_run(_former_bn, x, vectors, dy, relu, track)
     for name, a, b in zip(("y", "running_mean", "running_var"), got[:1] + got[4:],
                           want[:1] + want[4:]):
         assert torch.equal(a, b), name
@@ -117,10 +113,10 @@ def test_a_clamped_variance_takes_no_variance_gradient(clamp, relu):
     m = xc.mean(dim=(0, 2, 3))
     var_raw = ((xc * xc).mean(dim=(0, 2, 3)) - m * m)[0].item()
     assert var_raw < 0 if clamp == "negative" else var_raw == 0.0
-    got = _run(_plain, x, vectors, dy, True, relu)
-    want = _run(_former_bn, x, vectors, dy, True, relu)
+    got = bn_run(batchnorm.batch_norm_train, x, vectors, dy, relu)
+    want = bn_run(_former_bn, x, vectors, dy, relu)
     assert torch.equal(got[0], want[0]) and torch.isfinite(got[0]).all()
-    assert got[5][0].item() == np.float32(MOMENTUM * np.float32(vectors["running_var"][0]))
+    assert got[5][0].item() == np.float32(BN_MOMENTUM * np.float32(vectors["running_var"][0]))
     for name, a, b in zip(("x_grad", "weight_grad", "bias_grad"), got[1:4], want[1:4]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-5, atol=2e-5, err_msg=name)
 
@@ -131,8 +127,8 @@ def test_bf16_input_normalises_in_float32_and_rounds_once(relu):
     and affine, one rounding); the gradients in bf16 within two of its
     ulps of autograd's, which rounds the cast's gradient separately."""
     x, vectors, dy = _inputs(4, 16, 6, 6, torch.bfloat16, "channels_last", seed=9)
-    got = _run(_plain, x, vectors, dy, True, relu)
-    want = _run(_former_bn, x, vectors, dy, True, relu)
+    got = bn_run(batchnorm.batch_norm_train, x, vectors, dy, relu)
+    want = bn_run(_former_bn, x, vectors, dy, relu)
     assert got[0].dtype == torch.bfloat16 and torch.equal(got[0], want[0])
     assert got[1].dtype == torch.bfloat16
     scale = want[1].float().abs().max().item()
@@ -146,14 +142,15 @@ def test_the_relu_gate_is_the_forward_output():
     """Where the ReLU's output is 0 the gradient is 0, wherever it is > 0
     it passes; with the ReLU off it always passes."""
     x, vectors, dy = _inputs(2, 8, 4, 4, torch.float32, "channels_last", seed=2)
-    y, *_ = _run(_plain, x, vectors, dy, False, True)
+    plain = batchnorm.batch_norm_train
+    y, *_ = bn_run(plain, x, vectors, dy, True, False)
     assert (y == 0).any() and (y > 0).any()
     w = torch.zeros_like(dy)
     w[y == 0] = 1.0  # a loss that reads only the zeroed outputs
-    _, x_grad, weight_grad, bias_grad, _, _ = _run(_plain, x, vectors, w, False, True)
+    _, x_grad, weight_grad, bias_grad, _, _ = bn_run(plain, x, vectors, w, True, False)
     assert x_grad.abs().max().item() == 0.0
     assert weight_grad.abs().max().item() == 0.0 and bias_grad.abs().max().item() == 0.0
-    _, _, _, bias_grad, _, _ = _run(_plain, x, vectors, w, False, False)
+    _, _, _, bias_grad, _, _ = bn_run(plain, x, vectors, w, False, False)
     assert bias_grad.abs().min().item() > 0.0
 
 
@@ -174,7 +171,8 @@ def test_the_module_dispatch(mode, relu):
         got = bn(x, relu=relu)
         running = (vectors["running_mean"].clone(), vectors["running_var"].clone())
         if mode == "train":
-            want = _former_bn(x, vectors["weight"], vectors["bias"], running, relu)
+            want = _former_bn(x, vectors["weight"], vectors["bias"], running, BN_MOMENTUM,
+                              BN_EPS, None, relu)
         else:
             want = bn._affine(x, vectors["running_mean"], vectors["running_var"])
             want = F.relu(want) if relu else want
@@ -267,7 +265,7 @@ def test_the_kernel_wrapper_refuses_what_the_kernels_do_not_take(bad):
     with pytest.raises((TypeError, ValueError)):
         batchnorm._check(x, weight, bias, None)
     with pytest.raises(ValueError):  # neither the CPU nor a card
-        batchnorm.batch_norm_train(x.to("meta"), weight, bias, None, MOMENTUM, EPS)
+        batchnorm.batch_norm_train(x.to("meta"), weight, bias, None, BN_MOMENTUM, BN_EPS)
 
 
 # ---- two gloo ranks against the global batch ----
@@ -281,8 +279,8 @@ def two_ranks(tmp_path_factory):
     for relu in (False, True):
         vectors = {k: torch.from_numpy(inp[k].copy()) for k in ("weight", "bias",
                                                                "running_mean", "running_var")}
-        res = _run(_former_bn, torch.from_numpy(inp["x"]), vectors,
-                   torch.from_numpy(inp["w"]), True, relu)
+        res = bn_run(_former_bn, torch.from_numpy(inp["x"]), vectors,
+                     torch.from_numpy(inp["w"]), relu)
         want[relu] = dict(zip(("y", "x_grad", "weight_grad", "bias_grad", "running_mean",
                                "running_var"), (t.numpy() for t in res)))
     return out, want
@@ -307,13 +305,8 @@ def test_two_ranks_match_the_global_batch(two_ranks, relu, what):
 # ---- on the card ----
 
 
-CUDA_SHAPES = {  # name: (n, c, h, w, layout)
-    "block1_56": (10, 336, 56, 56, "channels_last"),
-    "block4_7": (10, 2160, 7, 7, "channels_last"),
-    "head_224": (10, 64, 224, 224, "channels_last"),
-    "c12_scalar": (4, 12, 9, 11, "channels_last"),
-    "nchw": (4, 96, 14, 14, "nchw"),
-}
+CARD_CASES = [(name, relu) for name in sorted(BN_CASES) for relu in (True, False)] + [
+    ("densenet161", None)]
 
 
 @pytest.fixture
@@ -322,53 +315,29 @@ def card():
         pytest.skip("needs an NVIDIA GPU (run with -m cuda on the card)")
 
 
-def _card_case(name, dtype, seed=0):
-    n, c, h, w, layout = CUDA_SHAPES[name]
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    x = (torch.randn(n, c, h, w, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
-    dy = torch.randn(n, c, h, w, generator=gen, device="cuda").to(dtype)
-    if layout == "channels_last":
-        x, dy = (t.contiguous(memory_format=torch.channels_last) for t in (x, dy))
-    vectors = {"weight": torch.rand(c, generator=gen, device="cuda") + 0.5,
-               "bias": torch.rand(c, generator=gen, device="cuda") - 0.5,
-               "running_mean": torch.zeros(c, device="cuda"),
-               "running_var": torch.ones(c, device="cuda")}
-    return x, vectors, dy
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("name,relu", CARD_CASES,
+                         ids=[f"{n}-{'relu' if r else 'norelu'}" if r is not None else n
+                              for n, r in CARD_CASES])
+def test_kernels_match_the_plain_version_on_the_card(card, name, relu, dtype):
+    """``_torch_card.bn_check``: two runs of the kernels bit for bit, one
+    launch of each kernel, every leaf within ``BN_TOL`` of the plain
+    version, on ``BN_CASES`` (seed ``BN_SEED``) and on every BN input shape
+    of one DenseUNet-161 forward at 10x224^2 with its call's ReLU (seed =
+    the shape's sorted index)."""
+    if name == "densenet161":
+        shapes = sorted({(shape, r) for _, shape, r, _ in densenet_bn_calls("cuda")})
+        for seed, (shape, r) in enumerate(shapes):
+            bn_check(shape, "channels_last", r, dtype, seed)
+        return
+    n, c, h, w, layout = BN_CASES[name]
+    bn_check((n, c, h, w), layout, relu, dtype, BN_SEED)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("relu", [True, False], ids=["relu", "norelu"])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("name", sorted(CUDA_SHAPES))
-def test_kernels_match_the_plain_version_on_the_card(card, name, dtype, relu):
-    """Outputs within one ulp of the output dtype (the statistics differ
-    in float32 summation order only), running statistics and gradients
-    to float32 summation order; two runs of the kernels bit for bit."""
-    x, vectors, dy = _card_case(name, dtype)
-    if relu:  # the ReLU's gate within 1e-3 of its kink follows the statistics' last bits
-        with torch.no_grad():
-            y0 = batchnorm.batch_norm_train_plain(x.float(), vectors["weight"], vectors["bias"],
-                                                  None, MOMENTUM, EPS)
-        dy = dy.masked_fill(y0.abs() < 1e-3, 0)
-
-    def kernels(*a):
-        return batchnorm.batch_norm_train(*a[:3], a[3], MOMENTUM, EPS, None, a[4])
-
-    def plain(*a):
-        return batchnorm.batch_norm_train_plain(*a[:3], a[3], MOMENTUM, EPS, None, a[4])
-
-    got = _run(kernels, x, vectors, dy, True, relu)
-    again = _run(kernels, x, vectors, dy, True, relu)
-    want = _run(plain, x, vectors, dy, True, relu)
-    torch.cuda.synchronize()
-    for a, b in zip(got, again):
-        assert torch.equal(a, b)
-    # one ulp of the output dtype, or float32's rounding of a sum's order
-    ulp = 2 ** -7 if dtype == torch.bfloat16 else 2e-5
-    y, yw = got[0].float(), want[0].float()
-    assert ((y - yw).abs() <= ulp * yw.abs().clamp_min(1.0)).all()
-    for what, a, b in zip(("x_grad", "weight_grad", "bias_grad", "running_mean",
-                           "running_var"), got[1:], want[1:]):
-        a, b = a.float(), b.float()
-        tol = 4 * ulp if what == "x_grad" else 1e-4
-        assert ((a - b).abs() <= tol * (b.abs() + 1e-2 * b.abs().max())).all(), what
+@pytest.mark.parametrize("world", [1, 2])
+def test_kernels_under_a_mesh_on_the_card(card, world, tmp_path):
+    """``_torch_ranks.bn_card_check``: gloo ranks sharing the card against
+    the kernels over the whole batch in this process."""
+    ranks.bn_card_check(tmp_path, world)

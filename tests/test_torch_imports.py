@@ -1,5 +1,5 @@
-"""Ground rules of the PyTorch/CUDA port that a CPU host can check: the port
-and chip_smoke.py import nothing of JAX or of the JAX package, every module
+"""Ground rules of the PyTorch/CUDA port that a CPU host can check: the port,
+chip_smoke.py and what it imports import nothing of JAX or of the JAX package, every module
 imports without a GPU, and the entry points refuse to run without a GPU
 unless the caller asks for the CPU."""
 
@@ -42,7 +42,7 @@ def _imported_roots(path: Path):
 
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "scripts" / "torch_step_profile.py",
-                                         ROOT / "scripts" / "torch_trainer_profile.py"]
+                                         ROOT / "tests" / "_torch_card.py"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -125,8 +125,8 @@ def test_isic_line_runs(line, isic, tmp_path):
     assert "Epoch 1:" in log and "VAL mIoU=" in log and "freeze_bn=False" in log
     rec = json.loads((run_dir / "metrics_run.jsonl").read_text().splitlines()[0])
     assert np.isfinite(rec["sup_loss"]) and np.isfinite(rec["cons_loss"])
-    # the training-BN kernels' counters: no launch and no plain call on a card here
-    assert rec["bn_launches"] == 0 and rec["bn_plain_cuda_calls"] == 0
+    # the training-BN kernels' counter: no launch without a card
+    assert rec["bn_launches"] == 0 and "bn_plain_cuda_calls" not in rec
     assert os.listdir(run_dir / "checkpoints") == ["ckpt_000000002.pt"]
     assert eng.p["bin_fill_holes"] and eng.n_classes == 2 and eng.state.step == 2
     assert eng.p["opt_type"] == "sgd" and eng.p["lr_sched"] == "poly"
